@@ -1,0 +1,76 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+Each ``.cu`` file under ``ops/csrc/`` compiles, at first use, into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o <lib> <source>
+
+The library lands in ``build/mgf_tpu_torch/`` at the repository root, in a
+file named after a hash of the source, so an edited source rebuilds and an
+unchanged one loads the existing library.  A missing nvcc or a failed build
+raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mgf_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_loaded = {}
+BUILD_SECONDS = {}   # source name -> seconds spent in nvcc this process
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                       "CUDA kernels of mgf_tpu_torch cannot be built")
+
+
+def _library_path(name: str) -> Path:
+    """Where the library for ``csrc/<name>.cu`` lives (keyed by the
+    source's hash and the compiler flags)."""
+    src = (_CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return _BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it
+    (once per process)."""
+    if name in _loaded:
+        return _loaded[name]
+    lib_path = _library_path(name)
+    if not lib_path.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed building {name}.cu "
+                               f"(exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, lib_path)   # atomic: concurrent builds agree
+    _loaded[name] = ctypes.CDLL(str(lib_path))
+    return _loaded[name]

@@ -1,0 +1,82 @@
+"""The flagship scene: ``stress_scene`` in its spheres form (counterpart of
+``mgf_tpu.scenes.stress_scene``).
+
+A ``layers``-deep block of r=0.5 spheres settling into an open-top box, with
+the flagship ``fused_iso`` configuration.  The positions, terrain and
+config are the JAX package's, field for field; see that module for the
+measurements behind each setting.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from mgf_tpu_torch.broadphase import GridConfig
+from mgf_tpu_torch.physics import SceneBuilder
+from mgf_tpu_torch.world import (
+    WorldConfig, init_bp_cache, init_warm, make_world,
+)
+
+
+def stress_scene(n_bodies: int = 100_000, mixed: bool = False, seed: int = 0,
+                 layers: int = 12, cap_frac: float = 0.25, *, device):
+    """The 100k-body stress config (BASELINE.json config 5), spheres form.
+    Returns (World, WorldConfig) with the world's tensors on ``device``."""
+    if mixed:
+        raise NotImplementedError(
+            "stress_scene(mixed=True) arrives with the capsule slice "
+            "(ROADMAP slice 9)")
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(n_bodies / layers)))
+    idx = np.arange(side * side * layers)[:n_bodies]
+    i, j, k = idx // (side * layers), (idx // layers) % side, idx % layers
+    shift = 1.25
+    pos = np.stack([
+        (i - side / 2) * shift,
+        2.0 + k * shift,
+        (j - side / 2) * shift,
+    ], axis=-1).astype(np.float32)
+    pos += rng.uniform(-0.01, 0.01, pos.shape).astype(np.float32)
+
+    b = SceneBuilder()
+    b.add_spheres(pos, 0.5, mass=1.0, restitution=0.3, friction=0.6)
+
+    span = side * shift                  # initial pile footprint
+    wall = float(span * 0.55 + 6.0)      # open-top box like the demo's
+    wh = 40.0                            # wall height (world.rs:118-150)
+    verts = np.asarray([
+        [-wall, 0.0, -wall], [-wall, 0.0, wall], [wall, 0.0, wall],
+        [wall, 0.0, -wall],
+        [-wall, wh, -wall], [-wall, wh, wall], [wall, wh, wall],
+        [wall, wh, -wall]], np.float32)
+    faces = np.asarray([
+        (0, 1, 3), (1, 2, 3),            # floor
+        (0, 5, 1), (0, 4, 5),            # walls
+        (0, 3, 7), (0, 7, 4),
+        (2, 6, 3), (3, 6, 7),
+        (1, 5, 2), (2, 5, 6)], np.int32)
+    world = make_world(b.build(device), verts, faces, device=device)
+    # grid modulus (dim * cell) must exceed the box span (2 * wall) or
+    # occupied cells alias and buckets overflow silently
+    dim = 32
+    while dim * 1.6 < 2.0 * wall + 10.0:
+        dim *= 2
+    cfg = WorldConfig(
+        dt=1.0 / 60.0, solver_iters=4, solver_inner=4, two_phase=False,
+        adapt_schedule=(0.97, 2, 6),
+        shape_mode="spheres",
+        solver="rows", broadphase="fat27x4", solver_rows=0, warm_start=True,
+        terrain_bp="near", terrain_cand=3,
+        grid=GridConfig(cell_size=1.6, dim=(dim, 16, dim), bucket_cap=12),
+        max_pairs=9, fatten=0.02,
+        stable_pairs=True,
+        n_sphere_rows=-1,
+        bp_every=32,
+        warm_match="hybrid",
+        pallas_solver=True,
+        cap_manifold="mid",
+        warm_gamma=1.0,
+        fused_iso=True)
+    world = init_warm(world, cfg, device)
+    world = init_bp_cache(world, cfg, device)
+    return world, cfg

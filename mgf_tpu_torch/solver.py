@@ -1,0 +1,295 @@
+"""Row-structured contact solver, isotropic (sphere) path.
+
+Counterpart of the row solver of ``mgf_tpu.solver`` (reference: solver.rs
+impulse math, warm-started sequential impulses with Baumgarte
+stabilization, restitution threshold and two-axis friction).  Every body
+owns a row of R constraint slots (its broadphase partners plus terrain
+triangles); each pair appears twice, once per body, mirrored; a solver
+iteration is one gather of the packed (8, N) body state by the (R, N)
+partner matrix, elementwise impulse math and a sum over the R axis.
+
+The slice covers ``solve_rows`` with scalar (isotropic) inertia and
+textbook friction, with warm starting, ``n_gather_rows`` and the fused
+inner-sweep kernel (``pallas_inner``, kept under the JAX package's name:
+here it selects the CUDA kernel of ``ops/solver_sweep.py``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from mgf_tpu_torch.manifold import Manifold
+from mgf_tpu_torch.math3d import (
+    Mat3, Vec3, cross, dot, magnitude2, safe_div,
+)
+
+# DefaultContactConstraintParams (solver.rs:276-279)
+PENETRATION_SLOP = 0.05
+BAUMGARTE = 0.2
+
+
+def contact_bias(pen, rel_v, restitution, dt, bias_max: float = -1.0):
+    """Baumgarte + restitution bias velocity (solver.rs:145-153).
+    ``bias_max`` >= 0 clamps the position-correction term (a documented
+    extension of the JAX package, off by default)."""
+    b = -BAUMGARTE / dt * torch.where(pen > 0.0, 0.0, pen + PENETRATION_SLOP)
+    if bias_max >= 0.0:
+        b = torch.clamp(b, max=bias_max)
+    return b + torch.where(rel_v < -1.0, -restitution * rel_v, 0.0)
+
+
+class BodyView(NamedTuple):
+    """Per-body quantities the solver reads (ConstrainedSet get,
+    physics.rs:272-304).  ``x`` is the end-of-sweep position."""
+    x: Vec3
+    v: Vec3
+    omega: Vec3
+    restitution: torch.Tensor
+    friction: torch.Tensor
+    inv_mass: torch.Tensor
+    inv_moment: Mat3
+
+
+class RowConstraints(NamedTuple):
+    """Per-body rows of contact-point slots; all tensors (R, N)."""
+    partner: torch.Tensor   # (R, N) int32 partner body (n for terrain)
+    ra: Vec3                # contact point local to the row body
+    rb: Vec3                # contact point local to the partner
+    normal: Vec3
+    t1: Vec3
+    t2: Vec3
+    friction: torch.Tensor
+    bias: torch.Tensor
+    normal_mass: torch.Tensor
+    tangent_mass1: torch.Tensor
+    tangent_mass2: torch.Tensor
+    valid: torch.Tensor     # (R, N) bool
+
+
+class PartnerFields(NamedTuple):
+    """Pre-gathered partner-side quantities for the fused iso constraint
+    build (one wide row gather at narrowphase time serves both the contact
+    test and the constraint precompute).  All tensors (K, N)."""
+    x_end: Vec3            # partner position at end of sweep (x + delta)
+    v: Vec3
+    omega: Vec3
+    restitution: torch.Tensor
+    friction: torch.Tensor
+    inv_mass: torch.Tensor
+    count: torch.Tensor    # mass-splitting contact count (clamped >= 1)
+    iso: torch.Tensor      # isotropic world inverse inertia scalar
+
+
+def build_row_constraints_iso_fused(bodies: BodyView, counts,
+                                    pf: PartnerFields, partner,
+                                    manifold: Manifold, dt,
+                                    static_x: Vec3,
+                                    n_pair_rows: int,
+                                    bias_max: float = -1.0) -> RowConstraints:
+    """Gather-free iso constraint precompute: rows ``[:n_pair_rows]`` read
+    ``pf``; the remaining rows have the static terrain body as partner
+    (zero inverse mass/inertia/velocity, position ``static_x``, zero
+    friction and restitution — ``RigidBodyRef::Static``, physics.rs:289-302).
+    ``counts`` is the (N,) mass-splitting count, the PREVIOUS frame's on the
+    fused path (a documented approximation of the JAX package)."""
+    n = partner.shape[1]
+    T = partner.shape[0] - n_pair_rows
+    iso = bodies.inv_moment.xx
+
+    zt = torch.zeros((T, n), dtype=torch.float32, device=partner.device)
+    cat = lambda p, t_: torch.cat([p, t_], dim=0)
+    catv = lambda p, t_: Vec3(cat(p.x, t_.x), cat(p.y, t_.y), cat(p.z, t_.z))
+    zvt = Vec3(zt, zt, zt)
+
+    xb = catv(pf.x_end, Vec3(zt + static_x.x, zt + static_x.y,
+                             zt + static_x.z))
+    vb = catv(pf.v, zvt)
+    ob = catv(pf.omega, zvt)
+    rb_ = cat(pf.restitution, zt)
+    fb = cat(pf.friction, zt)
+    imb = cat(pf.inv_mass * pf.count, zt)   # pre-split by partner count
+    ib = cat(pf.iso * pf.count, zt)
+
+    # self side: broadcasts, no gather
+    sl = lambda g: g[None, :]
+    xa = Vec3(*(sl(c) for c in bodies.x))
+    va = Vec3(*(sl(c) for c in bodies.v))
+    oa = Vec3(*(sl(c) for c in bodies.omega))
+    ima = (bodies.inv_mass * counts)[None, :]
+    ia = (iso * counts)[None, :]
+    ra_ = bodies.restitution[None, :]
+    fa = bodies.friction[None, :]
+
+    restitution = torch.maximum(ra_, rb_)
+    friction = torch.sqrt(fa * fb)
+
+    ra = manifold.local_a
+    rb = manifold.local_b
+    nrm = manifold.normal
+    t1, t2 = manifold.t1, manifold.t2
+
+    pen = dot((rb + xb) - (ra + xa), nrm)
+    dv = vb + cross(ob, rb) - va - cross(oa, ra)
+    rel_v = dot(dv, nrm)
+    bias = contact_bias(pen, rel_v, restitution, dt, bias_max)
+
+    def eff_mass(axis):
+        return safe_div(
+            1.0, ima + ia * magnitude2(cross(ra, axis))
+            + imb + ib * magnitude2(cross(rb, axis)))
+
+    return RowConstraints(
+        partner=partner, ra=ra, rb=rb, normal=nrm, t1=t1, t2=t2,
+        friction=friction, bias=bias, normal_mass=eff_mass(nrm),
+        tangent_mass1=eff_mass(t1), tangent_mass2=eff_mass(t2),
+        valid=manifold.valid)
+
+
+def pack_body_state(v: Vec3, omega: Vec3):
+    """(8, M) packed dynamic state: rows vx vy vz ox oy oz pad pad."""
+    z = torch.zeros_like(v.x)
+    return torch.stack([v.x, v.y, v.z, omega.x, omega.y, omega.z, z, z],
+                       dim=0)
+
+
+def unpack_body_state(S):
+    return (Vec3(S[0], S[1], S[2]), Vec3(S[3], S[4], S[5]))
+
+
+def _friction_impulses(rc, dv: Vec3, acc_t1, acc_t2, acc_n):
+    """Both tangent-axis lambdas from a single dv with the textbook clamped
+    accumulator (solver.rs:220-232).  Returns (applied1, applied2,
+    new_acc1, new_acc2)."""
+    lam1 = -dot(dv, rc.t1) * rc.tangent_mass1
+    lam2 = -dot(dv, rc.t2) * rc.tangent_mass2
+    max_l = rc.friction * acc_n
+    new1 = torch.minimum(torch.maximum(acc_t1 + lam1, -max_l), max_l)
+    new2 = torch.minimum(torch.maximum(acc_t2 + lam2, -max_l), max_l)
+    return new1 - acc_t1, new2 - acc_t2, new1, new2
+
+
+def _normal_impulse(rc, dv: Vec3, acc_n):
+    """Projected normal impulse (solver.rs:236-240)."""
+    vn = dot(dv, rc.normal)
+    lam = rc.normal_mass * (-vn + rc.bias)
+    new_acc = torch.clamp(acc_n + lam, min=0.0)
+    return new_acc - acc_n, new_acc
+
+
+def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
+               inv_moment, iters: int, friction_mode: str = "textbook",
+               two_phase: bool = True, inner_iters: int = 1, warm=None,
+               return_acc: bool = False, n_gather_rows: int = None,
+               pallas_inner: bool = False):
+    """Scatter-free row sweeps.  ``v``/``omega``/``inv_mass`` cover M >= N
+    rows (N = ``rc.partner.shape[1]``); bodies ``[0, N)`` are updated and
+    rows past N (statics) are returned unchanged.
+
+    ``inv_moment`` is the (M,) isotropic scalar inverse inertia.
+    ``inner_iters`` > 1 runs block-Jacobi inner sweeps with partner
+    velocities frozen between gathers (``iters`` gathers, ``iters *
+    inner_iters`` sweeps).  ``warm`` is an optional (acc_n, acc_t1, acc_t2)
+    triple of (R, N) accumulated impulses matched from the previous frame:
+    applied up front and used as the accumulator seed.  ``n_gather_rows``:
+    rows past this index have a STATIC partner, so their partner term is
+    zero and the per-sweep state gather fetches only the leading rows.
+    ``pallas_inner`` runs each outer iteration's inner sweeps through
+    :func:`mgf_tpu_torch.ops.solver_sweep.inner_sweeps` (the CUDA kernel on
+    a card; single-phase textbook friction only).
+
+    Returns (v, omega) for all M rows, plus the (R, N) accumulator triple
+    with ``return_acc``.
+    """
+    if friction_mode != "textbook" or isinstance(inv_moment, Mat3):
+        raise NotImplementedError(
+            "solve_rows with friction_mode='mgf' or Mat3 inertia arrives "
+            "with the reference-solver and capsule slices (ROADMAP 9-10)")
+    n = rc.partner.shape[1]
+    S = pack_body_state(v, omega)
+    M = S.shape[1]
+    ima = inv_mass[:n]
+    ia_s = inv_moment[:n]
+    R_tot = rc.partner.shape[0]
+    K = R_tot if n_gather_rows is None else min(n_gather_rows, R_tot)
+    # JAX clamps out-of-range gather indices; invalid pair rows carry
+    # partner = n, which lies past an N-row state, so clamp explicitly
+    # (the rows are masked by `valid` afterwards)
+    gather_idx = torch.clamp(rc.partner[:K], max=M - 1).long()
+    rb_k = Vec3(*(c[:K] for c in rc.rb))
+    pad_rows = R_tot - K
+
+    def partner_term(S):
+        # row-major state gather: one contiguous 8-float row per index
+        g = S.T[gather_idx]                          # (K, N, 8)
+        term = Vec3(g[..., 0], g[..., 1], g[..., 2]) + cross(
+            Vec3(g[..., 3], g[..., 4], g[..., 5]), rb_k)
+        if pad_rows:
+            zt = torch.zeros((pad_rows, n), dtype=S.dtype, device=S.device)
+            term = Vec3(*(torch.cat([c, zt], dim=0) for c in term))
+        return term
+
+    def self_term(S):
+        va = Vec3(S[0, :n][None], S[1, :n][None], S[2, :n][None])
+        oa = Vec3(S[3, :n][None], S[4, :n][None], S[5, :n][None])
+        return va + cross(oa, rc.ra)
+
+    def apply_self(S, imp: Vec3):
+        """Row bodies receive -impulse (self is side a)."""
+        imp = imp * rc.valid
+        lin = Vec3(-imp.x.sum(0), -imp.y.sum(0), -imp.z.sum(0)) * ima
+        ang_pt = -cross(rc.ra, imp)
+        ang = Vec3(ang_pt.x.sum(0), ang_pt.y.sum(0), ang_pt.z.sum(0)) * ia_s
+        upd = torch.stack([lin.x, lin.y, lin.z, ang.x, ang.y, ang.z], dim=0)
+        return torch.cat([
+            torch.cat([S[:6, :n] + upd, S[:6, n:]], dim=1), S[6:]], dim=0)
+
+    zero = torch.zeros(rc.valid.shape, dtype=torch.float32,
+                       device=S.device)
+    if warm is None:
+        acc0 = (zero, zero, zero)
+    else:
+        wn, wt1, wt2 = [w * rc.valid for w in warm]
+        S = apply_self(S, rc.t1 * wt1 + rc.t2 * wt2 + rc.normal * wn)
+        acc0 = (wn, wt1, wt2)
+
+    if pallas_inner:
+        if two_phase:
+            raise ValueError("pallas_inner requires the single-phase "
+                             "textbook-friction iso (scalar inertia) path")
+        from mgf_tpu_torch.ops import solver_sweep as _ss
+        fields = _ss.pack_row_fields(rc)
+        self_p = torch.stack([ima, ia_s])
+        acc = torch.stack(acc0)
+        for _ in range(iters):
+            t = partner_term(S)
+            term = torch.stack([t.x, t.y, t.z])
+            Sn, acc = _ss.inner_sweeps(S[:, :n].contiguous(), fields, term,
+                                       self_p, acc, inner_iters)
+            S = torch.cat([Sn, S[:, n:]], dim=1)
+        out = unpack_body_state(S)
+        if return_acc:
+            return out + ((acc[0], acc[1], acc[2]),)
+        return out
+
+    # the plain inner scan of the JAX package, as is
+    acc_n, acc_t1, acc_t2 = acc0
+    for _ in range(iters):
+        frozen = partner_term(S)
+        for _ in range(inner_iters):
+            dv = frozen - self_term(S)
+            f1, f2, acc_t1, acc_t2 = _friction_impulses(rc, dv, acc_t1,
+                                                        acc_t2, acc_n)
+            if two_phase:
+                S = apply_self(S, rc.t1 * f1 + rc.t2 * f2)
+                dv = frozen - self_term(S)
+                fn, acc_n = _normal_impulse(rc, dv, acc_n)
+                S = apply_self(S, rc.normal * fn)
+            else:
+                fn, acc_n = _normal_impulse(rc, dv, acc_n)
+                S = apply_self(S, rc.t1 * f1 + rc.t2 * f2 + rc.normal * fn)
+    v_out, o_out = unpack_body_state(S)
+    if return_acc:
+        return v_out, o_out, (acc_n, acc_t1, acc_t2)
+    return v_out, o_out

@@ -1,0 +1,588 @@
+"""The end-to-end physics step on the flagship ``fused_iso`` branch.
+
+Counterpart of ``mgf_tpu.world`` (reference: ``mgf_demo/world.rs:227-294``,
+``World::step``):
+
+    complete_motion -> integrate -> broadphase (cached fat grid) ->
+    narrowphase (one 18-wide partner gather) -> terrain "near" cull ->
+    manifolds -> row constraints -> warm match -> row solver
+
+:class:`WorldConfig` keeps every field name and default of the JAX
+package's, so a config moves between the two unchanged.  Only the
+``fused_iso`` sphere branch is on this slice; any other configuration
+raises ``NotImplementedError`` naming the ROADMAP slice that brings it.
+
+The JAX step is one jitted graph with ``lax.cond`` switches.  Here the two
+conds on ``need`` (rebuild or reuse the broadphase cache; keyed or
+positional warm matching) become ONE host read of ``need`` per step and a
+Python branch, and ``adapt_schedule`` reads ``warm_hit_frac`` on the host
+when it is set.  That costs a device->host synchronisation per step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mgf_tpu_torch import broadphase
+from mgf_tpu_torch.bounds import sphere_aabb
+from mgf_tpu_torch.broadphase import GridConfig
+from mgf_tpu_torch.collision import (
+    Contact, LocalContact, contact_moving_moving, contact_neg,
+    contact_sphere_moving_sphere, contact_stack,
+    contact_triangle_moving_sphere,
+)
+from mgf_tpu_torch.geom import Sphere, Triangle
+from mgf_tpu_torch.manifold import PERSISTENT_THRESHOLD_SQ, Manifold, prune
+from mgf_tpu_torch.math3d import Quat, Vec3, dot, magnitude2, tree_map
+from mgf_tpu_torch.physics import (
+    RigidBodyState, colliders, complete_motion, integrate,
+)
+from mgf_tpu_torch.solver import (
+    BodyView, PartnerFields, build_row_constraints_iso_fused, solve_rows,
+)
+
+
+class WorldConfig(NamedTuple):
+    """Static configuration of the step pipeline: the JAX package's
+    fields and defaults (see ``mgf_tpu.world.WorldConfig`` for each field's
+    full rationale)."""
+    dt: float = 1.0 / 60.0
+    solver_iters: int = 20           # world.rs:293
+    grid: GridConfig = GridConfig(cell_size=2.0, dim=64, bucket_cap=4)
+    use_grid: bool = True            # False: O(N^2) candidates
+    max_pairs: int = 16              # partner slots per body
+    fatten: float = 0.25             # fat-proxy margin (world.rs:181)
+    shape_mode: str = "spheres"      # "spheres" | "capsules" | "mixed"
+    solver: str = "rows"             # "rows" | "parallel" | "sequential"
+    friction_mode: str = "textbook"  # "textbook" | "mgf"
+    two_phase: bool = True           # rows solver: friction/normal phases
+    solver_inner: int = 1            # rows solver: inner sweeps per gather
+    broadphase: str = "packed"       # "packed" | fat modes
+    terrain_rows: int = 0            # keep only the top-k terrain rows
+    terrain_bp: str = "dense"        # "dense" | "grid" | "near"
+    terrain_cand: int = 8            # candidate faces per body (near/grid)
+    terrain_grid_cfg: GridConfig = None  # face-table geometry ("grid")
+    profile_stage: str = ""          # stop after a stage (JAX profiling)
+    bp_margin: float = 0.0           # > 0: fat-proxy refit cache
+    bp_every: int = 1                # > 1: rebuild the candidate list on
+                                     # this cadence, or the moment a body
+                                     # outruns its build slack (needs
+                                     # init_bp_cache state)
+    warm_start: bool = False         # persist accumulated impulses across
+                                     # frames (needs init_warm state)
+    pallas_narrowphase: bool = False  # generic branch: pair narrowphase
+                                      # kernel (K2, not yet ported)
+    pallas_solver: bool = False      # iso rows path (fused_iso, single-
+                                     # phase, textbook friction): run each
+                                     # outer iteration's inner sweeps as
+                                     # the hand-written CUDA kernel
+                                     # (ops/solver_sweep.py; its plain
+                                     # PyTorch version on CPU tensors)
+    solver_rows: int = 0             # compact rows to the top-k per body
+    cap_manifold: str = "mid"        # capsule flank contacts: mid | ends
+    stable_pairs: bool = False       # canonical (sorted) partner slots
+    warm_match: str = "search"       # "search" | "pos" | "hybrid"
+    warm_gamma: float = 1.0          # scale of the warm-start transfer
+    adapt_schedule: tuple = None     # (hit_frac, iters, inner)
+    n_sphere_rows: int = -1          # mixed mode type partition
+    light_metrics: bool = False      # skip the heavy observability metrics
+    bias_max: float = -1.0           # >= 0: clamp the Baumgarte bias
+    fused_iso: bool = False          # spheres+rows+warm_start fast path
+
+
+class BpCache(NamedTuple):
+    """Cached broadphase candidate list + the positions it was built at."""
+    partner: torch.Tensor   # (N, K) int32
+    ok: torch.Tensor        # (N, K) bool
+    anchor: Vec3            # positions at build time (end-of-sweep)
+    overflow: torch.Tensor  # () int32 from the build
+    count: torch.Tensor     # () int32 steps since init (bp_every cadence)
+    slack: torch.Tensor     # (N,) float32 per-body extra fat at build time
+    r_build: torch.Tensor = None  # (N,) float32 swept fat radius at build
+
+
+class SolverWarm(NamedTuple):
+    """Previous frame's constraint rows + accumulated impulses."""
+    partner: torch.Tensor   # (R, N) int32
+    key2: torch.Tensor      # (R, N) int32: pair slot id / terrain tri id
+    acc_n: torch.Tensor     # (R, N) float32
+    acc_t1: torch.Tensor
+    acc_t2: torch.Tensor
+
+
+class World(NamedTuple):
+    """Dynamic world state."""
+    bodies: RigidBodyState
+    terrain: Triangle        # triangle soup in world space, Vec3 (T,)
+    terrain_center: Vec3
+    terrain_grid: torch.Tensor = None  # "grid" terrain face table (unused)
+    warm: SolverWarm = None            # cfg.warm_start state (init_warm)
+    bp: BpCache = None                 # cfg.bp_every state (init_bp_cache)
+
+
+def solver_row_count(cfg: WorldConfig, n_tris: int) -> int:
+    """The rows solver's row count R for a config (mirrors step())."""
+    n_slots = 1 if cfg.shape_mode == "spheres" else 2
+    r = n_slots * cfg.max_pairs
+    if n_tris > 0:
+        t_width = (cfg.terrain_cand if cfg.terrain_bp in ("grid", "near")
+                   else n_tris)
+        t_rows = n_slots * t_width
+        if cfg.terrain_rows and t_rows > cfg.terrain_rows:
+            t_rows = cfg.terrain_rows
+        r += t_rows
+    if cfg.solver_rows and r > cfg.solver_rows:
+        r = cfg.solver_rows
+    return r
+
+
+def init_bp_cache(world: World, cfg: WorldConfig, device) -> World:
+    """Attach an (invalid) broadphase cache; the first step rebuilds."""
+    n = world.bodies.n_bodies
+    full = lambda v, dt: torch.full((n,), v, dtype=dt, device=device)
+    far = full(1.0e9, torch.float32)
+    return world._replace(bp=BpCache(
+        partner=torch.full((n, cfg.max_pairs), -1, dtype=torch.int32,
+                           device=device),
+        ok=torch.zeros((n, cfg.max_pairs), dtype=torch.bool, device=device),
+        anchor=Vec3(far, far.clone(), far.clone()),
+        overflow=torch.zeros((), dtype=torch.int32, device=device),
+        count=torch.zeros((), dtype=torch.int32, device=device),
+        slack=full(0.0, torch.float32),
+        r_build=full(0.0, torch.float32)))
+
+
+def init_warm(world: World, cfg: WorldConfig, device) -> World:
+    """Attach a zeroed warm-start state (cfg.warm_start scenes)."""
+    n = world.bodies.n_bodies
+    R = solver_row_count(cfg, world.terrain.a.x.shape[0])
+    z = torch.zeros((R, n), dtype=torch.float32, device=device)
+    none = torch.full((R, n), -9, dtype=torch.int32, device=device)
+    return world._replace(warm=SolverWarm(partner=none, key2=none.clone(),
+                                          acc_n=z, acc_t1=z.clone(),
+                                          acc_t2=z.clone()))
+
+
+def make_world(bodies: RigidBodyState, terrain_verts=None, terrain_faces=None,
+               terrain_center=(0.0, 0.0, 0.0), *, device) -> World:
+    """Assemble a world; terrain given as (V, 3) vertices + (T, 3) faces
+    (numpy).  The "grid" terrain face table is not on this slice."""
+    if terrain_verts is None:
+        tv = np.zeros((0, 3), np.float32)
+        corners = (tv, tv, tv)
+    else:
+        tv = np.asarray(terrain_verts, np.float32)
+        tf = np.asarray(terrain_faces, np.int32)
+        corners = tuple(tv[tf[:, k]] for k in range(3))
+    vec = lambda a: Vec3(*(torch.as_tensor(np.ascontiguousarray(a[:, k]),
+                                           device=device) for k in range(3)))
+    tri = Triangle(*(vec(c) for c in corners))
+    tc = np.asarray(terrain_center, np.float32)
+    center = Vec3(*(torch.as_tensor(tc[k], device=device) for k in range(3)))
+    return World(bodies=bodies, terrain=tri, terrain_center=center)
+
+
+def _stable_sort_pairs(partner, pair_ok):
+    """Canonical slot order: sort each body's partner list by index
+    (invalid slots to the end) and mask duplicate partners.  The partner
+    SET is unchanged; slot positions become deterministic."""
+    big = 1 << 28
+    p_s = torch.sort(torch.where(pair_ok, partner, big), dim=1).values
+    dup = torch.zeros_like(pair_ok)
+    dup[:, 1:] = p_s[:, 1:] == p_s[:, :-1]
+    ok = (p_s < big) & ~dup
+    return torch.where(ok, p_s, -1), ok
+
+
+class ShapeView(NamedTuple):
+    """The slice of body state the narrowphase reads."""
+    x: Vec3
+    q: Quat
+    delta: Vec3
+    shape_type: torch.Tensor
+    shape_r: torch.Tensor
+    shape_half_h: torch.Tensor
+
+
+def shape_view(state: RigidBodyState) -> ShapeView:
+    return ShapeView(x=state.x, q=state.q, delta=state.delta,
+                     shape_type=state.shape_type, shape_r=state.shape_r,
+                     shape_half_h=state.shape_half_h)
+
+
+class GatheredShapes(NamedTuple):
+    """One side of a pair batch after the gather (spheres only here)."""
+    x: Vec3
+    delta: Vec3
+    sphere: Sphere
+    capsule: object = None
+    shape_type: torch.Tensor = None
+
+
+def manifold_prox_sq(cfg: WorldConfig) -> float:
+    """Pruner proximity-merge threshold for this config (manifold.rs:38,
+    or the tight one of the capsule "ends" extension)."""
+    return 1.0e-4 if cfg.cap_manifold == "ends" else PERSISTENT_THRESHOLD_SQ
+
+
+def _check_slice(cfg: WorldConfig, world: World, n_tris: int):
+    """Raise for any configuration off the fused_iso flagship slice."""
+    off = None
+    if cfg.profile_stage:
+        off = ("profile_stage (becomes profiler ranges)", 14)
+    elif cfg.solver != "rows":
+        off = (f"solver={cfg.solver!r}", 10)
+    elif cfg.shape_mode != "spheres":
+        off = (f"shape_mode={cfg.shape_mode!r}", 9)
+    elif not cfg.fused_iso:
+        off = ("the generic (non-fused_iso) branch", 8)
+    elif not cfg.use_grid or cfg.broadphase != "fat27x4":
+        off = (f"broadphase={cfg.broadphase!r}/use_grid={cfg.use_grid}", 14)
+    elif cfg.bp_margin > 0.0 or cfg.bp_every <= 1 or world.bp is None:
+        off = ("a step without the bp_every cache (bp_every > 1 and "
+               "init_bp_cache state are the slice)", 14)
+    elif n_tris > 0 and cfg.terrain_bp == "grid":
+        off = ("terrain_bp='grid'", 11)
+    elif cfg.terrain_rows:
+        off = ("terrain_rows", 8)
+    elif cfg.pallas_narrowphase:
+        off = ("pallas_narrowphase (kernel K2)", 8)
+    elif cfg.cap_manifold != "mid":
+        off = ("cap_manifold='ends'", 9)
+    if off is not None:
+        raise NotImplementedError(
+            f"mgf_tpu_torch runs only the fused_iso flagship branch; "
+            f"{off[0]} arrives with ROADMAP slice {off[1]}")
+    # the JAX package's own guard for the fused path
+    if (not cfg.warm_start or cfg.solver_rows or world.warm is None
+            or (n_tris > 0 and cfg.terrain_bp not in ("near", "grid"))):
+        raise ValueError(
+            "cfg.fused_iso requires shape_mode='spheres', solver='rows',"
+            " warm_start=True, solver_rows=0, and a culled terrain_bp")
+    if cfg.warm_match == "hybrid" and not cfg.stable_pairs:
+        raise ValueError("warm_match='hybrid' requires stable_pairs")
+
+
+def _deepest(c: Contact):
+    """Max penetration depth over valid contacts ((ca-cb)·n > 0 when
+    overlapping; solver.rs:140 sign convention)."""
+    pen = dot(c.b - c.a, c.n)
+    return torch.max(torch.where(c.valid, torch.clamp(-pen, min=0.0), 0.0))
+
+
+def _near_terrain(world: World, state: RigidBodyState, cfg: WorldConfig):
+    """Dense AABB-distance terrain cull: the terrain_cand nearest faces
+    within reach per body.  ``lax.top_k`` keeps the LOWER index among equal
+    scores, and both triangles of a box face share one AABB, so ties are
+    certain: a stable descending sort reproduces that order exactly."""
+    n = state.n_bodies
+    ta = world.terrain
+    comps = lambda v: (v.x, v.y, v.z)
+    tlo = [torch.minimum(torch.minimum(a, b), c)
+           for a, b, c in zip(comps(ta.a), comps(ta.b), comps(ta.c))]
+    thi = [torch.maximum(torch.maximum(a, b), c)
+           for a, b, c in zip(comps(ta.a), comps(ta.b), comps(ta.c))]
+    px = comps(state.x)
+    d2 = torch.zeros((n, ta.a.x.shape[0]), dtype=torch.float32,
+                     device=state.x.x.device)
+    for k in range(3):
+        d_ax = torch.clamp(torch.maximum(tlo[k][None, :] - px[k][:, None],
+                                         px[k][:, None] - thi[k][None, :]),
+                           min=0.0)
+        d2 = d2 + d_ax * d_ax
+    reach = (state.shape_r + state.shape_half_h
+             + torch.sqrt(magnitude2(state.delta)) + 0.1)
+    score = torch.where(d2 <= (reach * reach)[:, None], -d2, -float("inf"))
+    top, pick = torch.sort(score, dim=1, descending=True, stable=True)
+    top, pick = top[:, :cfg.terrain_cand], pick[:, :cfg.terrain_cand]
+    return pick.to(torch.int32), torch.isfinite(top)
+
+
+def _match_warm(warm: SolverWarm, partner_rows, key2_rows, n: int,
+                n_tris: int, search: bool):
+    """Warm-start accumulators for this frame's rows.  Positional: a row
+    warms iff the SAME slot held the same (partner, key2) last frame.
+    Search: match by (partner, key2) key across all previous slots, first
+    match wins (a one-hot contraction over the previous slots)."""
+    if not search:
+        hit = (partner_rows == warm.partner) & (key2_rows == warm.key2)
+        hf = hit.to(torch.float32)
+        return warm.acc_n * hf, warm.acc_t1 * hf, warm.acc_t2 * hf, hit
+    kbit = 1 << 17
+    if (n + 1) < kbit and max(n_tris, 8) < (1 << 14):
+        # (partner, key2) fused into one injective int32 key
+        k_now = key2_rows * kbit + partner_rows
+        k_prev = torch.where(warm.partner < 0, -9,
+                             warm.key2 * kbit + warm.partner)
+        eq = k_now[:, None, :] == k_prev[None]
+    else:
+        eq = ((partner_rows[:, None, :] == warm.partner[None])
+              & (key2_rows[:, None, :] == warm.key2[None]))
+    first = eq & (torch.cumsum(eq.to(torch.int32), dim=1) == 1)
+    wn = torch.zeros(partner_rows.shape, dtype=torch.float32,
+                     device=partner_rows.device)
+    wt1, wt2 = wn, wn
+    for k in range(warm.partner.shape[0]):
+        mk = first[:, k, :].to(torch.float32)
+        wn = wn + mk * warm.acc_n[k][None]
+        wt1 = wt1 + mk * warm.acc_t1[k][None]
+        wt2 = wt2 + mk * warm.acc_t2[k][None]
+    return wn, wt1, wt2, torch.any(first, dim=1)
+
+
+def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
+    """One physics frame on the fused_iso branch (World::step,
+    world.rs:227-294).  Returns (new_world, metrics dict of device
+    tensors).  ``collect_contacts`` adds the raw pair and terrain contact
+    streams with their index vectors to the metrics."""
+    n_tris = world.terrain.a.x.shape[0]
+    _check_slice(cfg, world, n_tris)
+    state = complete_motion(world.bodies)
+    state = integrate(state, cfg.dt, iso=True)
+    n = state.n_bodies
+    dev = state.x.x.device
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    sv = shape_view(state)
+    light = cfg.light_metrics
+
+    # ---- broadphase: staleness-gated cache around the fat grid ----
+    alive = state.shape_r > 0.0
+    body_bounds = sphere_aabb(colliders(sv))
+    bounds = broadphase.swept_fat_bounds(body_bounds, state.delta, cfg.fatten)
+    r_eff = torch.where(alive, torch.maximum(
+        bounds.r.x, torch.maximum(bounds.r.y, bounds.r.z)), 0.0)
+    guarantee = cfg.grid.cell_size
+    if n >= 2 and not light:
+        m1 = torch.max(r_eff)
+        m2 = torch.clamp(torch.max(torch.where(r_eff < m1, r_eff,
+                                               -float("inf"))), min=0.0)
+        top2sum = torch.where(torch.sum(r_eff == m1) >= 2, 2.0 * m1, m1 + m2)
+    else:
+        top2sum = f32(0.0)
+    if light:
+        reach_excess = f32(0.0)
+        span_excess = f32(0.0)
+    else:
+        reach_excess = torch.clamp(top2sum - guarantee, min=0.0)
+        gdims = broadphase.grid_dims(cfg.grid)
+        span = lambda c: (torch.max(torch.where(alive, c, -float("inf")))
+                          - torch.min(torch.where(alive, c, float("inf"))))
+        span_excess = torch.clamp(torch.maximum(torch.maximum(
+            span(bounds.c.x) / (gdims[0] * cfg.grid.cell_size),
+            span(bounds.c.y) / (gdims[1] * cfg.grid.cell_size)),
+            span(bounds.c.z) / (gdims[2] * cfg.grid.cell_size)) - 1.0,
+            min=0.0)
+
+    bp = world.bp
+    x_end = state.x + state.delta
+    drift2 = magnitude2(x_end - bp.anchor)
+    dmag = torch.sqrt(magnitude2(state.delta))
+    desired = (cfg.bp_every - 1) * (2.0 * dmag + 0.02)
+    budget = torch.clamp(0.5 * guarantee - r_eff, min=0.0)
+    slack = torch.minimum(desired, budget)
+    r_grow = torch.clamp(r_eff - bp.r_build, min=0.0)
+    stale = torch.max(torch.where(
+        alive, torch.sqrt(drift2) + r_grow - bp.slack, 0.0)) > 0.0
+    need = ((bp.count % cfg.bp_every) == 0) | stale
+    # the one host read of the step: rebuild or reuse (JAX: lax.cond)
+    rebuild = bool(need)
+    if rebuild:
+        fat_bounds = broadphase.swept_fat_bounds(body_bounds, state.delta,
+                                                 cfg.fatten + cfg.bp_margin)
+        fat_bounds = fat_bounds._replace(r=Vec3(
+            fat_bounds.r.x + slack, fat_bounds.r.y + slack,
+            fat_bounds.r.z + slack))
+        grid = broadphase.build_fat_grid(fat_bounds, cfg.grid, width=4,
+                                         valid=alive)
+        partner, pair_ok = broadphase.fat_grid_pairs(
+            fat_bounds, grid, cfg.grid, cfg.max_pairs, ordered=False,
+            window="27")
+        if cfg.stable_pairs:
+            partner, pair_ok = _stable_sort_pairs(partner, pair_ok)
+        new_bp = BpCache(partner=partner, ok=pair_ok, anchor=x_end,
+                         overflow=grid.overflow, count=bp.count + 1,
+                         slack=slack, r_build=r_eff)
+        bp_drift_excess = f32(0.0)
+    else:
+        partner, pair_ok = bp.partner, bp.ok
+        new_bp = bp._replace(count=bp.count + 1)
+        bp_drift_excess = torch.clamp(torch.max(torch.where(
+            alive, torch.sqrt(drift2) - bp.slack, 0.0)), min=0.0)
+    overflow = new_bp.overflow
+
+    # ---- body-body narrowphase over the slot-major (K, N) partner rows ----
+    K = partner.shape[1]
+    partner_t = partner.T
+    pair_ok_t = pair_ok.T
+    cols2 = torch.where(pair_ok_t, partner_t, 0)
+    # previous frame's mass-splitting counts, from the warm state
+    cnt_prev = torch.clamp(torch.sum(
+        (world.warm.partner != -9).to(torch.float32), dim=0), min=1.0)
+    pw = torch.stack([
+        sv.x.x, sv.x.y, sv.x.z,
+        sv.delta.x, sv.delta.y, sv.delta.z, sv.shape_r,
+        state.v.x, state.v.y, state.v.z,
+        state.omega.x, state.omega.y, state.omega.z,
+        state.restitution, state.friction, state.inv_mass,
+        cnt_prev, state.inv_moment.xx], dim=-1)   # (N, 18)
+    g18 = pw[cols2.long()]                        # (K, N, 18) — THE gather
+    gx = Vec3(g18[..., 0], g18[..., 1], g18[..., 2])
+    gd = Vec3(g18[..., 3], g18[..., 4], g18[..., 5])
+    gb = GatheredShapes(x=gx, delta=gd, sphere=Sphere(c=gx, r=g18[..., 6]))
+    exp = lambda a: a[None, :]
+    gax = Vec3(exp(sv.x.x), exp(sv.x.y), exp(sv.x.z))
+    gad = Vec3(exp(sv.delta.x), exp(sv.delta.y), exp(sv.delta.z))
+    ga = GatheredShapes(x=gax, delta=gad,
+                        sphere=Sphere(c=gax, r=exp(sv.shape_r)))
+    pf = PartnerFields(
+        x_end=gx + gd,
+        v=Vec3(g18[..., 7], g18[..., 8], g18[..., 9]),
+        omega=Vec3(g18[..., 10], g18[..., 11], g18[..., 12]),
+        restitution=g18[..., 13], friction=g18[..., 14],
+        inv_mass=g18[..., 15], count=g18[..., 16], iso=g18[..., 17])
+    pc = contact_stack([contact_moving_moving(
+        contact_sphere_moving_sphere, ga.sphere, ga.delta, gb.sphere,
+        gb.delta)])                               # slots (1, K, N)
+    pc = pc._replace(valid=pc.valid & pair_ok_t[None])
+    lc = LocalContact(local_a=pc.a - (ga.x + ga.delta * pc.t),
+                      local_b=pc.b - (gb.x + gb.delta * pc.t),
+                      contact=pc)
+    prox = manifold_prox_sq(cfg)
+    pair_manifold = prune(lc, max_contacts=1, prox_sq=prox)
+    max_pen = f32(0.0) if light else _deepest(pc)
+
+    def man_to_rows(man: Manifold, width):
+        """Single-slot manifold over (width, N) -> (width, N) rows."""
+        return Manifold(time=man.time, normal=man.normal, t1=man.t1,
+                        t2=man.t2, local_a=man.local_a[0],
+                        local_b=man.local_b[0], valid=man.valid[0])
+
+    blocks = [man_to_rows(pair_manifold, K)]
+    partners = [torch.where(pair_ok_t, partner_t, n)]
+    key2s = [torch.zeros((K, n), dtype=torch.int32, device=dev)]
+
+    # ---- terrain narrowphase: the "near" cull ----
+    if n_tris > 0:
+        t_cand, t_ok = _near_terrain(world, state, cfg)
+        if cfg.stable_pairs:
+            tb = 1 << 28
+            tcs = torch.sort(torch.where(t_ok, t_cand, tb), dim=1).values
+            tdup = torch.zeros_like(t_ok)
+            tdup[:, 1:] = tcs[:, 1:] == tcs[:, :-1]
+            t_ok = (tcs < tb) & ~tdup
+            t_cand = torch.where(t_ok, tcs, 0)
+        t_width = cfg.terrain_cand
+        t_tris = torch.where(t_ok, t_cand, 0).T        # (T_w, N)
+        t_valid = t_ok.T
+        ta_ = world.terrain
+        tpack = torch.stack([ta_.a.x, ta_.a.y, ta_.a.z,
+                             ta_.b.x, ta_.b.y, ta_.b.z,
+                             ta_.c.x, ta_.c.y, ta_.c.z], dim=-1)  # (T, 9)
+        gtri = tpack[t_tris.long()]
+        tri = Triangle(a=Vec3(gtri[..., 0], gtri[..., 1], gtri[..., 2]),
+                       b=Vec3(gtri[..., 3], gtri[..., 4], gtri[..., 5]),
+                       c=Vec3(gtri[..., 6], gtri[..., 7], gtri[..., 8]))
+        gt = ga
+        tc = contact_neg(contact_stack([contact_triangle_moving_sphere(
+            tri, gt.sphere, gt.delta)]))
+        tc = tc._replace(valid=tc.valid & t_valid[None])
+        t_lc = LocalContact(local_a=tc.a - (gt.x + gt.delta * tc.t),
+                            local_b=tc.b - world.terrain_center,
+                            contact=tc)
+        blocks.append(man_to_rows(prune(t_lc, max_contacts=1, prox_sq=prox),
+                                  t_width))
+        partners.append(torch.full((t_width, n), n, dtype=torch.int32,
+                                   device=dev))
+        key2s.append(t_tris)
+        if not light:
+            max_pen = torch.maximum(max_pen, _deepest(tc))
+
+    # ---- scatter-free row constraints, gather-free precompute ----
+    man_rows = tree_map(lambda *xs: torch.cat(xs, dim=0), *blocks)
+    partner_rows = torch.cat(partners, dim=0)
+    key2_rows = torch.cat(key2s, dim=0)
+    n_pair_rows = K
+    bv = BodyView(x=state.x + state.delta, v=state.v, omega=state.omega,
+                  restitution=state.restitution, friction=state.friction,
+                  inv_mass=state.inv_mass, inv_moment=state.inv_moment)
+    rc = build_row_constraints_iso_fused(
+        bv, cnt_prev, pf, partner_rows, man_rows, cfg.dt,
+        world.terrain_center, n_pair_rows, bias_max=cfg.bias_max)
+    rc_valid = man_rows.valid
+
+    # ---- warm matching (JAX hybrid: lax.cond on the same `need`) ----
+    search = (cfg.warm_match == "search"
+              or (cfg.warm_match == "hybrid" and rebuild))
+    wn, wt1, wt2, matched = _match_warm(world.warm, partner_rows, key2_rows,
+                                        n, n_tris, search)
+    if cfg.warm_gamma != 1.0:
+        g = cfg.warm_gamma
+        wn, wt1, wt2 = wn * g, wt1 * g, wt2 * g
+    warm = (wn, wt1, wt2)
+    use_pk = (cfg.pallas_solver and not cfg.two_phase
+              and cfg.friction_mode == "textbook")
+
+    def run_solve(it, inner):
+        return solve_rows(rc, state.v, state.omega, state.inv_mass,
+                          state.inv_moment.xx, it, cfg.friction_mode,
+                          cfg.two_phase, inner, warm=warm, return_acc=True,
+                          n_gather_rows=n_pair_rows, pallas_inner=use_pk)
+
+    warm_hit_frac = (
+        torch.sum((matched & rc_valid).to(torch.float32))
+        / torch.clamp(torch.sum(rc_valid.to(torch.float32)), min=1.0))
+    schedule = (cfg.solver_iters, cfg.solver_inner)
+    if cfg.adapt_schedule is not None:
+        # JAX: lax.cond on the device; here a second host read
+        thr, it2, in2 = cfg.adapt_schedule
+        if float(warm_hit_frac) >= thr:
+            schedule = (int(it2), int(in2))
+    v, omega, acc = run_solve(*schedule)
+    new_warm = SolverWarm(partner=torch.where(rc_valid, partner_rows, -9),
+                          key2=key2_rows, acc_n=acc[0], acc_t1=acc[1],
+                          acc_t2=acc[2])
+
+    # NOTE: ``delta`` keeps its pre-solve value, as in the JAX package
+    vt, ot = v[:n], omega[:n]
+    if light:
+        dv_norm = f32(0.0)
+    else:
+        dv = vt - state.v
+        dv_norm = torch.sqrt(torch.sum(dv.x * dv.x + dv.y * dv.y
+                                       + dv.z * dv.z))
+    state = state._replace(v=vt, omega=ot)
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    num_contacts = (zero_i if light
+                    else torch.sum(rc_valid).to(torch.int32))
+    metrics = {
+        "num_alive": zero_i if light else torch.sum(alive).to(torch.int32),
+        "broadphase_overflow": overflow,
+        "broadphase_reach_excess": reach_excess,
+        "broadphase_span_excess": span_excess,
+        "terrain_reach_excess": f32(0.0),
+        "broadphase_rebuilt": need,
+        "broadphase_cache_drift_excess": bp_drift_excess,
+        "num_pairs": zero_i if light else
+        torch.sum(pair_ok_t).to(torch.int32),
+        "num_contacts": num_contacts,
+        "num_constraints": rc_valid.numel(),
+        "solver_rows_dropped": zero_i,
+        "warm_hit_frac": warm_hit_frac,
+        "max_penetration": max_pen,
+        "solver_dv_norm": dv_norm,
+    }
+    if collect_contacts:
+        flat = lambda c: tree_map(lambda x: x.reshape(x.shape[0], -1), c)
+        rows = torch.arange(n, dtype=torch.int32,
+                            device=dev)[None, :].expand(K, n).reshape(-1)
+        metrics["pair_contacts"] = dict(i=rows, j=cols2.reshape(-1),
+                                        contact=flat(pc))
+        if n_tris > 0:
+            metrics["terrain_contacts"] = dict(
+                i=torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+                .expand(t_width, n).reshape(-1),
+                tri=t_tris.reshape(-1), contact=flat(tc))
+    return world._replace(bodies=state, warm=new_warm, bp=new_bp), metrics

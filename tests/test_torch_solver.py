@@ -1,0 +1,279 @@
+"""Parity of the port's row solver (mgf_tpu_torch.solver) and of kernel K1's
+plain version (ops/solver_sweep.inner_sweeps_reference) with mgf_tpu's.
+
+The port-side twins of tests/test_solver_sweep.py: the same random row
+systems, made with numpy, go through mgf_tpu.solve_rows (pallas_inner
+False, and True with the Pallas kernel in interpret mode) and through the
+port's solve_rows with the same flag (on CPU tensors the port's kernel
+wrapper runs its plain PyTorch version).
+
+Tolerance atol 2e-4, rtol 1e-4 as test_solver_sweep.py: the sweeps sum
+impulses over rows in another order than XLA's fused reductions, and
+4-12 sweeps compound that float32 noise.  Accumulators are compared on
+valid rows only (the jnp path also updates invalid rows, the kernel masks
+them; invalid-row accumulators are never consumed).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax.numpy as jnp  # noqa: E402
+
+from mgf_tpu import solver as jsol  # noqa: E402
+from mgf_tpu.manifold import Manifold as JManifold  # noqa: E402
+from mgf_tpu.math3d import Mat3 as JMat3  # noqa: E402
+from mgf_tpu.math3d import Vec3 as JVec3  # noqa: E402
+
+from mgf_tpu_torch import solver as tsol  # noqa: E402
+from mgf_tpu_torch.manifold import Manifold as TManifold  # noqa: E402
+from mgf_tpu_torch.math3d import Mat3 as TMat3  # noqa: E402
+from mgf_tpu_torch.math3d import Vec3 as TVec3  # noqa: E402
+from mgf_tpu_torch.ops import solver_sweep as tss  # noqa: E402
+
+
+def _unit(a):
+    return (a / (np.linalg.norm(a, axis=0, keepdims=True) + 1e-9)).astype(
+        np.float32)
+
+
+def _random_rows(n=700, R=6, seed=0, valid_frac=0.7, m_extra=1):
+    """A random self-consistent row system (test_solver_sweep.py:21-63 in
+    numpy): unit normals, orthonormal tangents, partners pointing at
+    other bodies; the state has M = n + m_extra rows."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)
+    nrm = _unit(f32(3, R, n))
+    helper = np.broadcast_to(np.asarray([1.0, 0.1, -0.2], np.float32)
+                             [:, None, None], nrm.shape)
+    t1 = _unit(np.cross(nrm, helper, axis=0))
+    t2 = np.cross(nrm, t1, axis=0).astype(np.float32)
+    m = n + m_extra
+    rows = dict(
+        partner=rng.integers(0, m, (R, n)).astype(np.int32),
+        ra=f32(3, R, n) * 0.4, rb=f32(3, R, n) * 0.4,
+        normal=nrm, t1=t1, t2=t2,
+        friction=rng.uniform(0.2, 0.8, (R, n)).astype(np.float32),
+        bias=rng.uniform(-0.5, 1.5, (R, n)).astype(np.float32),
+        normal_mass=rng.uniform(0.2, 1.0, (R, n)).astype(np.float32),
+        tangent_mass1=rng.uniform(0.2, 1.0, (R, n)).astype(np.float32),
+        tangent_mass2=rng.uniform(0.2, 1.0, (R, n)).astype(np.float32),
+        valid=rng.uniform(size=(R, n)) < valid_frac)
+    body = dict(v=f32(3, m), omega=f32(3, m) * 0.3,
+                inv_mass=rng.uniform(0.5, 1.5, m).astype(np.float32),
+                iso=rng.uniform(0.5, 2.0, m).astype(np.float32))
+    return rows, body
+
+
+def _to(rows, body, vec, arr, RC):
+    rc = RC(**{k: (vec(*(arr(np.ascontiguousarray(c)) for c in v))
+                   if k in ("ra", "rb", "normal", "t1", "t2") else arr(v))
+               for k, v in rows.items()})
+    b = (vec(*(arr(np.ascontiguousarray(c)) for c in body["v"])),
+         vec(*(arr(np.ascontiguousarray(c)) for c in body["omega"])),
+         arr(body["inv_mass"]), arr(body["iso"]))
+    return rc, b
+
+
+def _both(rows, body):
+    jrc, jb = _to(rows, body, JVec3, jnp.asarray, jsol.RowConstraints)
+    trc, tb = _to(rows, body, TVec3, torch.as_tensor, tsol.RowConstraints)
+    return (jrc, jb), (trc, tb)
+
+
+def _np(x):
+    if isinstance(x, tuple):
+        return np.stack([_np(c) for c in x])
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _run(mod, rc, b, pallas, iters=3, inner=4, warm=None, ngr=None):
+    return mod.solve_rows(rc, b[0], b[1], b[2], b[3], iters,
+                          friction_mode="textbook", two_phase=False,
+                          inner_iters=inner, warm=warm, return_acc=True,
+                          n_gather_rows=ngr, pallas_inner=pallas)
+
+
+def _assert_solve(out_j, out_t, valid, atol=2e-4):
+    for a, b in zip(out_j[:2], out_t[:2]):
+        np.testing.assert_allclose(_np(a), _np(b), atol=atol, rtol=1e-4)
+    for a, b in zip(out_j[2], out_t[2]):
+        np.testing.assert_allclose(_np(a)[valid], _np(b)[valid], atol=atol,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+def test_solve_rows_matches_jax(pallas):
+    rows, body = _random_rows()
+    (jrc, jb), (trc, tb) = _both(rows, body)
+    out_j = _run(jsol, jrc, jb, pallas)
+    out_t = _run(tsol, trc, tb, pallas)
+    _assert_solve(out_j, out_t, rows["valid"])
+    # the solve must actually do something (non-degenerate fixture)
+    assert np.abs(_np(out_t[0]) - body["v"]).max() > 1e-3
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+def test_solve_rows_warm_started(pallas):
+    rows, body = _random_rows(seed=3)
+    rng = np.random.default_rng(9)
+    R, n = rows["valid"].shape
+    warm = [rng.uniform(0, 0.3, (R, n)).astype(np.float32) for _ in range(3)]
+    (jrc, jb), (trc, tb) = _both(rows, body)
+    out_j = _run(jsol, jrc, jb, pallas,
+                 warm=tuple(jnp.asarray(w) for w in warm))
+    out_t = _run(tsol, trc, tb, pallas,
+                 warm=tuple(torch.as_tensor(w) for w in warm))
+    _assert_solve(out_j, out_t, rows["valid"])
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+def test_solve_rows_static_tail_rows(pallas):
+    """n_gather_rows: trailing rows point at the static terminal row (zero
+    velocity), are cut from the state gather, and still agree; the cut
+    gather also equals the uncut one."""
+    rows, body = _random_rows(seed=5)
+    R, n = rows["valid"].shape
+    ngr = R - 2
+    rows["partner"][ngr:] = n
+    body["v"][:, n] = 0.0
+    body["omega"][:, n] = 0.0
+    (jrc, jb), (trc, tb) = _both(rows, body)
+    out_j = _run(jsol, jrc, jb, pallas, ngr=ngr)
+    out_t = _run(tsol, trc, tb, pallas, ngr=ngr)
+    _assert_solve(out_j, out_t, rows["valid"])
+    out_f = _run(tsol, trc, tb, pallas, ngr=None)
+    _assert_solve(out_t, out_f, rows["valid"])
+
+
+def test_solve_rows_rejects_unsupported_modes():
+    rows, body = _random_rows(n=64, R=2)
+    _, (trc, tb) = _both(rows, body)
+    with pytest.raises(ValueError):
+        tsol.solve_rows(trc, tb[0], tb[1], tb[2], tb[3], 2, two_phase=True,
+                        pallas_inner=True)
+    with pytest.raises(NotImplementedError):
+        tsol.solve_rows(trc, tb[0], tb[1], tb[2], tb[3], 2,
+                        friction_mode="mgf")
+    iso = tb[3]
+    z = torch.zeros_like(iso)
+    with pytest.raises(NotImplementedError):
+        tsol.solve_rows(trc, tb[0], tb[1], tb[2],
+                        TMat3(iso, z, z, z, iso, z, z, z, iso), 2)
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+def test_invalid_rows_partner_out_of_range(pallas):
+    """The fused path gathers partners from an N-row state while invalid
+    pair rows carry partner = n (one past the end).  JAX clamps the index;
+    the port must clamp explicitly (torch raises on CPU and is undefined on
+    CUDA) and agree with JAX, the rows being masked by `valid`."""
+    rows, body = _random_rows(n=300, R=5, seed=11, m_extra=0)
+    R, n = rows["valid"].shape
+    bad = np.random.default_rng(4).uniform(size=(R, n)) < 0.3
+    rows["valid"] &= ~bad
+    rows["partner"][bad] = n                     # past the N-row state
+    (jrc, jb), (trc, tb) = _both(rows, body)
+    out_j = _run(jsol, jrc, jb, pallas, ngr=R - 1)
+    out_t = _run(tsol, trc, tb, pallas, ngr=R - 1)
+    _assert_solve(out_j, out_t, rows["valid"])
+    assert all(np.isfinite(_np(o)).all() for o in out_t[:2])
+
+
+def test_inner_sweeps_reference_matches_pallas_kernel():
+    """K1's plain version against the Pallas kernel itself (interpret
+    mode) on one outer iteration's inputs."""
+    from mgf_tpu.ops import solver_sweep as jss
+    rows, body = _random_rows(n=512, R=12, seed=13)
+    (jrc, _), (trc, _) = _both(rows, body)
+    rng = np.random.default_rng(1)
+    n = 512
+    S = rng.standard_normal((8, n)).astype(np.float32)
+    term = (rng.standard_normal((3, 12, n)) * 0.5).astype(np.float32)
+    self_p = rng.uniform(0.5, 1.5, (2, n)).astype(np.float32)
+    acc = rng.uniform(0, 0.3, (3, 12, n)).astype(np.float32)
+    fj = jss.pack_row_fields(jrc)
+    ft = tss.pack_row_fields(trc)
+    np.testing.assert_array_equal(np.asarray(fj), ft.numpy())
+    for inner in (4, 6):
+        sj, aj = jss.inner_sweeps(jnp.asarray(S), fj, jnp.asarray(term),
+                                  jnp.asarray(self_p), jnp.asarray(acc),
+                                  inner, interpret=True)
+        st, at = tss.inner_sweeps(torch.as_tensor(S), ft,
+                                  torch.as_tensor(term),
+                                  torch.as_tensor(self_p),
+                                  torch.as_tensor(acc), inner)
+        np.testing.assert_allclose(np.asarray(sj), st.numpy(), atol=2e-4,
+                                   rtol=1e-4)
+        # the kernel masks accumulator updates itself: compare everywhere
+        np.testing.assert_allclose(np.asarray(aj), at.numpy(), atol=2e-4,
+                                   rtol=1e-4)
+        np.testing.assert_array_equal(st.numpy()[6:], S[6:])
+
+
+def test_inner_sweeps_checks_inputs():
+    n, R = 16, 3
+    z = lambda *s: torch.zeros(s, dtype=torch.float32)
+    ok = (z(8, n), z(18, R, n), z(3, R, n), z(2, n), z(3, R, n))
+    tss.inner_sweeps(*ok, 2)
+    with pytest.raises(ValueError):
+        tss.inner_sweeps(z(8, n), z(18, R, n + 1), *ok[2:], 2)
+    with pytest.raises(TypeError):
+        tss.inner_sweeps(ok[0].double(), *ok[1:], 2)
+    with pytest.raises(ValueError):
+        tss.inner_sweeps(z(n, 8).T, *ok[1:], 2)
+
+
+def test_build_row_constraints_iso_fused_matches_jax():
+    rng = np.random.default_rng(21)
+    n, K, T = 400, 9, 3
+    R = K + T
+    f32 = lambda *s, sc=1.0: (rng.standard_normal(s) * sc).astype(np.float32)
+    uni = lambda lo, hi, *s: rng.uniform(lo, hi, s).astype(np.float32)
+    body = dict(x=f32(3, n, sc=3.0), v=f32(3, n), omega=f32(3, n, sc=0.3),
+                restitution=uni(0.0, 0.5, n), friction=uni(0.2, 0.8, n),
+                inv_mass=uni(0.5, 1.5, n), iso=uni(0.5, 2.0, n))
+    pfd = dict(x_end=f32(3, K, n, sc=3.0), v=f32(3, K, n),
+               omega=f32(3, K, n, sc=0.3), restitution=uni(0, 0.5, K, n),
+               friction=uni(0.2, 0.8, K, n), inv_mass=uni(0.5, 1.5, K, n),
+               count=np.floor(uni(1, 8, K, n)), iso=uni(0.5, 2.0, K, n))
+    counts = np.floor(uni(1, 8, n))
+    nrm = _unit(f32(3, R, n))
+    t1 = _unit(np.cross(nrm, np.asarray([1.0, 0.1, -0.2], np.float32)
+                        [:, None, None] + 0 * nrm, axis=0))
+    t2 = np.cross(nrm, t1, axis=0).astype(np.float32)
+    man = dict(time=uni(0, 1, R, n), normal=nrm, t1=t1, t2=t2,
+               local_a=f32(3, R, n, sc=0.5), local_b=f32(3, R, n, sc=0.5),
+               valid=rng.uniform(size=(R, n)) < 0.6)
+    partner = rng.integers(0, n + 1, (R, n)).astype(np.int32)
+    static_x = np.asarray([0.0, -10.0, 0.0], np.float32)
+
+    def build(mod, Vec, Mat, arr, Man):
+        vec = lambda a: Vec(*(arr(np.ascontiguousarray(c)) for c in a))
+        iso = arr(body["iso"])
+        z = arr(np.zeros(n, np.float32))
+        bv = mod.BodyView(x=vec(body["x"]), v=vec(body["v"]),
+                          omega=vec(body["omega"]),
+                          restitution=arr(body["restitution"]),
+                          friction=arr(body["friction"]),
+                          inv_mass=arr(body["inv_mass"]),
+                          inv_moment=Mat(iso, z, z, z, iso, z, z, z, iso))
+        pf = mod.PartnerFields(**{k: (vec(v) if v.ndim == 3 else arr(v))
+                                  for k, v in pfd.items()})
+        m = Man(**{k: (vec(v) if v.ndim == 3 else arr(v))
+                   for k, v in man.items()})
+        return mod.build_row_constraints_iso_fused(
+            bv, arr(counts), pf, arr(partner), m, 1.0 / 60.0,
+            vec(static_x), K)
+
+    rj = build(jsol, JVec3, JMat3, jnp.asarray, JManifold)
+    rt = build(tsol, TVec3, TMat3, torch.as_tensor, TManifold)
+    for f in rj._fields:
+        a, b = _np(getattr(rj, f)), _np(getattr(rt, f))
+        if a.dtype == bool or f == "partner":
+            np.testing.assert_array_equal(a, b, err_msg=f)
+        else:
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5,
+                                       err_msg=f)
