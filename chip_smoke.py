@@ -1,22 +1,44 @@
-"""Smoke run of mgf_tpu_torch on one NVIDIA GPU: build the kernel, check it,
-drive the flagship path, and check what comes out.
+"""Smoke run of mgf_tpu_torch on one NVIDIA GPU: build the kernels, check
+them, drive the flagship path and the generic sphere branch, and check what
+comes out.
 
     python3 chip_smoke.py
 
 Phases (each prints one line; any failure raises and exits non-zero):
 
 1. the device: torch's name for it and nvidia-smi's name and power limit;
-2. build kernel K1 (ops/csrc/solver_sweep.cu) with nvcc, timed;
+2. build every kernel source (ops/csrc/*.cu) with nvcc, one process per
+   source, all started together, timed;
 3. K1 against its plain PyTorch version at the flagship shapes (R=12 rows,
    N=100,000 bodies, 4 and 6 inner sweeps, warm accumulators), with both
    times from CUDA events; tolerance atol 2e-4 / rtol 1e-4 on the state and
    on the accumulators of valid rows;
 4. the main path: stress_scene(100_000) stepped 256 steps by
    AdaptiveChunkStepper(chunk=16, light=True), with the physics guards
-   checked and K1's launch count held to the solver's outer iterations;
+   checked and K1's launch count held to the solver's outer iterations
+   (every kernel's count is set to 0 before each path, [4], [7] and [8],
+   and read after it; the kernels line sums them);
 5. kernel path against plain path end to end: an 8,000-body pile stepped
    40 steps on the card, copied to the CPU, then one more step on each;
-6. a JSON line of per-kernel results, then the result line.
+6. K2 against its plain version at P = 900,000 pairs (the cold pile's 9
+   slots x 100k), random blocks plus one row per branch of the kernel;
+   valid exactly, t and n atol 1e-4, witness points atol 1e-3;
+7. the generic branch at full size: the cold reference-schedule pile
+   (stress_scene(100_000), warm starting off, 20 two-phase sweeps, K2 on)
+   stepped 64 steps, with its guards and K2's launches held to the steps;
+8. the demo balls_scene(11) (1,332 bodies, packed grid, dense terrain,
+   K2 on) stepped 280 steps, with its guards and K2's launches; its grid
+   overflows while the block lands, as mgf_tpu's does on the same scene
+   (test_demo_overflow_series_matches_jax in
+   tests/test_torch_world_generic.py): at most 96 bodies in a step, and
+   none from step 201 on;
+9. the generic branch on the card against the CPU: one more demo step on
+   each, contact counts within 0.1 %, v and omega within 1e-3 on every
+   body whose contact set is the same in both runs;
+10. K3 (K1's kernel over the block-major layout) against its plain version
+    at R=12, N=100,352, block 512/1024/2048, inner 1 and 8, timed beside
+    K1 on the same data;
+11. a JSON line of per-kernel results, then the result line.
 
 Needs a CUDA card; it exits non-zero without one, and imports no JAX.
 """
@@ -34,6 +56,43 @@ import torch
 TOL = dict(atol=2e-4, rtol=1e-4)
 N_MAIN = 100_000      # the flagship pile
 N_E2E = 8_000         # the end-to-end kernel-vs-plain pile
+N_K3 = 100_352        # K3's micro-bench width (512 | N)
+
+# The least time for a kernel's work: the larger of its bytes (each input
+# read once, each output written once) over the H100 SXM's 3.35 TB/s and
+# its float32 operations over the 67 TFLOP/s outside the tensor cores
+# (NVIDIA's data sheet, 700 W).  Operations per unit of work are counted
+# from the kernel sources.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+K1_OPS_PER_ROW_SWEEP = 83     # dv, friction, normal, impulse, sums
+K1_OPS_PER_COL_SWEEP = 12     # the velocity update
+K2_OPS_PER_PAIR = 170
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by) for work of ``n_bytes`` and ``n_ops``."""
+    t_b = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_o = 1e3 * n_ops / F32_OPS_PER_S
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def sweep_bound(R, N, inner):
+    """K1/K3: S, fields, term, self_p, acc in; S', acc' out."""
+    n_bytes = 4 * ((8 + 2 + 8) * N + (18 + 3 + 3 + 3) * R * N)
+    n_ops = inner * (K1_OPS_PER_ROW_SWEEP * R * N + K1_OPS_PER_COL_SWEEP * N)
+    return bound(n_bytes, n_ops)
+
+
+def _zero_counts(ss, nph):
+    torch.cuda.synchronize()
+    ss.LAUNCHES = ss.BLOCKMAJOR_LAUNCHES = nph.LAUNCHES = 0
+
+
+def _counts(ss, nph):
+    torch.cuda.synchronize()
+    return {"K1": ss.LAUNCHES, "K2": nph.LAUNCHES,
+            "K3": ss.BLOCKMAJOR_LAUNCHES}
 
 
 def check(cond, msg):
@@ -97,14 +156,17 @@ def phase_kernel(ss, dev):
         torch.testing.assert_close(a_k[:, valid], a_p[:, valid], **TOL)
         ms = _time_ms(lambda: ss.inner_sweeps(*args, inner))
         plain_ms = _time_ms(lambda: ss.inner_sweeps_reference(*args, inner))
-        out[inner] = dict(err=max(err_s, err_a), ms=ms, plain_ms=plain_ms)
+        b_ms, b_by = sweep_bound(12, 100_000, inner)
+        out[inner] = dict(err=max(err_s, err_a), ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by)
         print(f"[3] K1 R=12 N=100000 inner={inner}: max_abs_err state "
               f"{err_s:.3g} acc {err_a:.3g} (atol 2e-4, rtol 1e-4); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
     return out
 
 
-def phase_main_path(ss, dev):
+def phase_main_path(ss, nph, dev):
     from mgf_tpu_torch.driver import AdaptiveChunkStepper
     from mgf_tpu_torch.scenes import stress_scene
     world, cfg = stress_scene(N_MAIN, device=dev)
@@ -114,8 +176,7 @@ def phase_main_path(ss, dev):
     expected = 0
     chunk_s, last, rebuilds = [], None, 0
     overflow, drift = 0, 0.0
-    torch.cuda.synchronize()
-    ss.LAUNCHES = 0
+    _zero_counts(ss, nph)
     for _ in range(n_chunks):
         t0 = time.perf_counter()
         world, m = st.step_chunk(world)
@@ -126,7 +187,8 @@ def phase_main_path(ss, dev):
         overflow = max(overflow, int(m["broadphase_overflow"].max()))
         drift = max(drift, float(m["broadphase_cache_drift_excess"].max()))
         last = {k: v[-1] for k, v in m.items()}
-    launches = ss.LAUNCHES
+    counts = _counts(ss, nph)
+    launches = counts["K1"]
     b = world.bodies
     finite = all(bool(torch.isfinite(c).all())
                  for c in (*b.x, *b.v, *b.omega))
@@ -149,7 +211,7 @@ def phase_main_path(ss, dev):
     check(pen < 0.5, f"max penetration {pen}")
     check(launches == expected and launches > 0,
           f"K1 launches {launches} != solver outer iterations {expected}")
-    return launches
+    return counts
 
 
 def phase_end_to_end(dev):
@@ -175,11 +237,227 @@ def phase_end_to_end(dev):
     check(err <= 1e-3, f"v/omega differ by {err}")
 
 
+def _edge_blocks():
+    """One (8,) column pair per branch of K2: coincident centres with
+    v = 0 and with v != 0, overlap, a sweep hit at t = 2/3, a miss
+    (disc < 0), a separating pair, a hit beyond t = 1."""
+    col = lambda x, d, r: [*x, *d, r, 0.0]
+    a0 = col((0, 0, 0), (0, 0, 0), 0.5)
+    rows = [(a0, col((0, 0, 0), (0, 0, 0), 0.5)),
+            (a0, col((0, 0, 0), (0.3, -0.1, 0.2), 0.5)),
+            (a0, col((0.6, 0.2, 0), (0, 0, 0), 0.5)),
+            (a0, col((2.0, 0, 0), (-1.5, 0, 0), 0.5)),
+            (a0, col((2.0, 3.0, 0), (-1.5, 0, 0), 0.5)),
+            (a0, col((2.0, 0, 0), (1.0, 0.5, 0), 0.5)),
+            (a0, col((5.0, 0, 0), (-1.0, 0, 0), 0.5))]
+    f = lambda side: np.asarray([r[side] for r in rows], np.float32).T
+    return f(0), f(1), [False, True, True, True, False, False, False]
+
+
+def phase_k2(nph, dev, P=9 * N_MAIN):
+    rng = np.random.default_rng(0)
+    ga = rng.standard_normal((8, P)).astype(np.float32)
+    gb = rng.standard_normal((8, P)).astype(np.float32)
+    ga[6] = np.abs(ga[6]) + 0.1
+    gb[6] = np.abs(gb[6]) + 0.1
+    ea, eb, want = _edge_blocks()
+    ga[:, :ea.shape[1]] = ea
+    gb[:, :eb.shape[1]] = eb
+    ga, gb = (torch.as_tensor(x, device=dev) for x in (ga, gb))
+    ck = nph.sphere_contact_pairs(ga, gb)
+    cp = nph.sphere_contact_pairs_reference(ga, gb)
+    torch.cuda.synchronize()
+    check(torch.equal(ck.valid, cp.valid), "K2 valid differs from plain")
+    check(cp.valid[:len(want)].tolist() == want,
+          f"K2 edge rows valid {cp.valid[:len(want)].tolist()}")
+    v = cp.valid
+    err_tn = max(float((a[v] - b[v]).abs().max())
+                 for a, b in zip([*ck.n, ck.t], [*cp.n, cp.t]))
+    err_p = max(float((a[v] - b[v]).abs().max())
+                for a, b in zip([*ck.a, *ck.b], [*cp.a, *cp.b]))
+    check(err_tn <= 1e-4, f"K2 t/n differ by {err_tn}")
+    check(err_p <= 1e-3, f"K2 witness points differ by {err_p}")
+    ms = _time_ms(lambda: nph.sphere_contact_pairs(ga, gb))
+    plain_ms = _time_ms(lambda: nph.sphere_contact_pairs_reference(ga, gb))
+    # rows 0-6 of each input (row 7 is not read), [ca cb t valid] and n out
+    b_ms, b_by = bound(4 * (7 + 7 + 8 + 3) * P, K2_OPS_PER_PAIR * P)
+    print(f"[6] K2 P={P}: valid equal ({int(v.sum())} valid), max_abs_err "
+          f"t/n {err_tn:.3g} (atol 1e-4) points {err_p:.3g} (atol 1e-3); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})", flush=True)
+    return dict(err=max(err_tn, err_p), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def _finite(world):
+    b = world.bodies
+    return all(bool(torch.isfinite(c).all()) for c in (*b.x, *b.v, *b.omega))
+
+
+def _run_chunks(run, world, n_chunks, chunk):
+    """Step ``n_chunks`` chunks; per-chunk wall seconds, rebuilds, the
+    per-step overflow series, the worst drift excess, and the last step's
+    metrics."""
+    chunk_s, rebuilds, overflow, drift, last = [], 0, [], 0.0, None
+    ones = torch.ones((chunk,), dtype=torch.float32,
+                      device=world.bodies.x.x.device)
+    for _ in range(n_chunks):
+        t0 = time.perf_counter()
+        world, m = run(world, ones)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+        rebuilds += int(m["broadphase_rebuilt"].sum())
+        overflow += m["broadphase_overflow"].tolist()
+        drift = max(drift, float(m["broadphase_cache_drift_excess"].max()))
+        last = {k: v[-1] for k, v in m.items()}
+    return world, chunk_s, rebuilds, overflow, drift, last
+
+
+def phase_cold_path(ss, nph, dev):
+    from mgf_tpu_torch.driver import make_chunk_step
+    from mgf_tpu_torch.scenes import stress_scene
+    world, cfg = stress_scene(N_MAIN, device=dev)
+    cfg = cfg._replace(warm_start=False, fused_iso=False,
+                       warm_match="search", adapt_schedule=None,
+                       solver_iters=20, solver_inner=1, two_phase=True,
+                       pallas_narrowphase=True)
+    world = world._replace(warm=None)
+    chunk, n_chunks = 16, 4
+    _zero_counts(ss, nph)
+    world, chunk_s, rebuilds, overflow, drift, last = _run_chunks(
+        make_chunk_step(cfg, light=True), world, n_chunks, chunk)
+    counts = _counts(ss, nph)
+    launches = counts["K2"]
+    overflow = max(overflow)
+    steps = chunk * n_chunks
+    sps_late = chunk * (n_chunks - 1) / sum(chunk_s[1:])
+    contacts = int(last["num_contacts"])
+    pen = float(last["max_penetration"])
+    print(f"[7] cold reference-schedule pile stress_scene({N_MAIN}), 20 "
+          f"two-phase sweeps, {steps} steps: {sps_late:.2f} steps/s (steps "
+          f"17-{steps}), contacts {contacts}, max penetration {pen:.4f}, "
+          f"rebuilds {rebuilds}, overflow {overflow}, drift excess {drift}, "
+          f"K2 launches {launches} (expected {steps})", flush=True)
+    check(_finite(world), "cold pile: non-finite x, v or omega")
+    check(overflow == 0, f"cold pile: broadphase overflow {overflow}")
+    check(drift == 0.0, f"cold pile: broadphase drift excess {drift}")
+    check(contacts > 0, "cold pile: no contacts")
+    check(pen < 0.5, f"cold pile: max penetration {pen}")
+    check(launches == steps, f"cold pile: K2 launches {launches} != {steps}")
+    return counts
+
+
+def phase_demo(ss, nph, dev):
+    from mgf_tpu_torch.driver import make_chunk_step
+    from mgf_tpu_torch.scenes import balls_scene
+    world, cfg = balls_scene(11, device=dev)
+    cfg = cfg._replace(pallas_narrowphase=True)
+    chunk, n_chunks = 20, 14
+    _zero_counts(ss, nph)
+    world, chunk_s, rebuilds, overflow, drift, last = _run_chunks(
+        make_chunk_step(cfg, light=True), world, n_chunks, chunk)
+    counts = _counts(ss, nph)
+    launches = counts["K2"]
+    steps = chunk * n_chunks
+    landing, settling = max(overflow[:200]), max(overflow[200:])
+    y_min = float(world.bodies.x.y.min())
+    contacts = int(last["num_contacts"])
+    print(f"[8] demo balls_scene(11) ({world.bodies.n_bodies} bodies) "
+          f"{steps} steps: {steps / sum(chunk_s):.2f} steps/s, contacts "
+          f"{contacts}, max penetration {float(last['max_penetration']):.4f}"
+          f", lowest y {y_min:.4f}, dropped ball at y "
+          f"{float(world.bodies.x.y[-1]):.2f}, overflow worst step "
+          f"{landing} in steps 1-200 (limit 96), {settling} in 201-{steps}, "
+          f"K2 launches {launches} (expected {steps})", flush=True)
+    check(_finite(world), "demo: non-finite x, v or omega")
+    check(y_min > -10.0, f"demo: a body below the floor (y {y_min})")
+    # the demo's own grid (cell 2.0, cap 10) overflows while the block
+    # lands, mgf_tpu's too: at most 96 bodies in a step, none from 201 on
+    check(landing <= 96, f"demo: broadphase overflow {landing} while "
+          f"landing")
+    check(settling == 0, f"demo: broadphase overflow {settling} after "
+          f"step 200")
+    check(contacts > 0, "demo: no contacts")
+    check(launches == steps, f"demo: K2 launches {launches} != {steps}")
+    return world, cfg, counts
+
+
+def _contact_sets(m):
+    """Per body, the set of its valid pair partners and terrain faces."""
+    out = {}
+    for key, other in (("pair_contacts", "j"), ("terrain_contacts", "tri")):
+        s = m[key]
+        v = s["contact"].valid.reshape(-1).cpu()
+        i = s["i"].cpu()[v].tolist()
+        j = s[other].cpu()[v].tolist()
+        for a, b in zip(i, j):
+            out.setdefault(a, set()).add((key, b))
+    return out
+
+
+def phase_demo_card_vs_cpu(world, cfg):
+    from mgf_tpu_torch import world_from_numpy, world_to_numpy
+    from mgf_tpu_torch.world import step
+    w_cpu = world_from_numpy(world_to_numpy(world), "cpu")
+    w_g, m_g = step(world, cfg, collect_contacts=True)
+    w_c, m_c = step(w_cpu, cfg, collect_contacts=True)
+    n_g, n_c = int(m_g["num_contacts"]), int(m_c["num_contacts"])
+    s_g, s_c = _contact_sets(m_g), _contact_sets(m_c)
+    n = world.bodies.n_bodies
+    differ = [i for i in range(n) if s_g.get(i, set()) != s_c.get(i, set())]
+    same = torch.ones(n, dtype=torch.bool)
+    same[differ] = False
+    err = max(float((a.cpu() - b).abs()[same].max())
+              for f in ("v", "omega")
+              for a, b in zip(getattr(w_g.bodies, f), getattr(w_c.bodies, f)))
+    print(f"[9] demo one more step, card (K2) vs cpu (plain): contacts card "
+          f"{n_g} / cpu {n_c}; bodies whose contact set differs "
+          f"{len(differ)} of {n}; max |dv|,|domega| on the rest {err:.3g} "
+          f"(atol 1e-3)", flush=True)
+    check(n_c > 0 and abs(n_g - n_c) <= 0.001 * n_c,
+          f"demo contact counts {n_g} vs {n_c}")
+    check(len(differ) <= 0.001 * n, f"{len(differ)} bodies' contacts differ")
+    check(err <= 1e-3, f"demo v/omega differ by {err}")
+
+
+def phase_k3(ss, dev):
+    args, valid = _flagship_rows(12, N_K3, dev, seed=1)
+    k1 = {inner: _time_ms(lambda: ss.inner_sweeps(*args, inner))
+          for inner in (1, 8)}
+    out = {}
+    for block in (512, 1024, 2048):
+        blk = [ss._to_blocks(x, N_K3 // block) for x in args]
+        vb = ss._to_blocks(valid, N_K3 // block)
+        for inner in (1, 8):
+            s_k, a_k = ss.inner_sweeps_blockmajor(*blk, inner)
+            s_p, a_p = ss.inner_sweeps_blockmajor_reference(*blk, inner)
+            torch.cuda.synchronize()
+            live = lambda a: a.transpose(0, 1)[:, vb]    # valid rows
+            torch.testing.assert_close(s_k, s_p, **TOL)
+            torch.testing.assert_close(live(a_k), live(a_p), **TOL)
+            err = max(float((s_k - s_p).abs().max()),
+                      float((live(a_k) - live(a_p)).abs().max()))
+            ms = _time_ms(lambda: ss.inner_sweeps_blockmajor(*blk, inner))
+            plain_ms = _time_ms(
+                lambda: ss.inner_sweeps_blockmajor_reference(*blk, inner))
+            b_ms, b_by = sweep_bound(12, N_K3, inner)
+            out[(block, inner)] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                       bound_ms=b_ms, bound_by=b_by)
+            print(f"[10] K3 R=12 N={N_K3} block={block} inner={inner}: "
+                  f"max_abs_err {err:.3g} (atol 2e-4, rtol 1e-4); kernel "
+                  f"{ms:.4f} ms, K1 same data {k1[inner]:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
+    from mgf_tpu_torch.ops import _build
+    from mgf_tpu_torch.ops import narrowphase as nph
     from mgf_tpu_torch.ops import solver_sweep as ss
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -190,23 +468,46 @@ def main():
     print(f"[1] device {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     print(smi, flush=True)
-    t0 = time.perf_counter()
-    nvcc_s = ss.build()
-    print(f"[2] K1 built in {nvcc_s:.2f} s of nvcc (load total "
-          f"{time.perf_counter() - t0:.2f} s)", flush=True)
+    wall_s = _build.build_all()
+    per_src = ", ".join(f"{k} {v:.2f} s"
+                        for k, v in sorted(_build.BUILD_SECONDS.items()))
+    print(f"[2] kernels built in {wall_s:.2f} s wall, one nvcc per source "
+          f"in parallel ({per_src})", flush=True)
     k1 = phase_kernel(ss, dev)
-    launches = phase_main_path(ss, dev)
+    paths = [phase_main_path(ss, nph, dev)]
     phase_end_to_end(dev)
-    print(json.dumps({"kernels": [{
-        "name": "solver_sweep.inner_sweeps",
-        "route": "cuda",
-        "source": "mgf_tpu_torch/ops/csrc/solver_sweep.cu",
-        "replaces": "mgf_tpu/ops/solver_sweep.py:113",
-        "launches": launches,
-        "max_abs_err": max(v["err"] for v in k1.values()),
-        "ms": k1[6]["ms"],
-        "plain_ms": k1[6]["plain_ms"],
-    }]}), flush=True)
+    k2 = phase_k2(nph, dev)
+    paths.append(phase_cold_path(ss, nph, dev))
+    demo, demo_cfg, demo_counts = phase_demo(ss, nph, dev)
+    paths.append(demo_counts)
+    launches = {k: sum(p[k] for p in paths) for k in paths[0]}
+    phase_demo_card_vs_cpu(demo, demo_cfg)
+    k3 = phase_k3(ss, dev)
+
+    def row(name, source, replaces, n, r):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n,
+                "max_abs_err": r["err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None}
+
+    # no single PyTorch call computes K1, K2 or K3: library_ms is null.
+    # launches: each kernel's count summed over the three paths ([4], [7],
+    # [8]).  K1 at the main path's settled shape (inner 6); K2 at the cold
+    # pile's 900,000 pairs; K3 at block 1024, inner 8
+    print(json.dumps({"kernels": [
+        row("solver_sweep.inner_sweeps",
+            "mgf_tpu_torch/ops/csrc/solver_sweep.cu",
+            "mgf_tpu/ops/solver_sweep.py:113", launches["K1"],
+            dict(k1[6], err=max(v["err"] for v in k1.values()))),
+        row("narrowphase.sphere_contact_pairs",
+            "mgf_tpu_torch/ops/csrc/sphere_contact.cu",
+            "mgf_tpu/ops/narrowphase.py:110", launches["K2"], k2),
+        row("solver_sweep.inner_sweeps_blockmajor",
+            "mgf_tpu_torch/ops/csrc/solver_sweep.cu",
+            "scripts/micro_sweep.py:61", launches["K3"],
+            dict(k3[(1024, 8)], err=max(v["err"] for v in k3.values()))),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

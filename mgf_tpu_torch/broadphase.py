@@ -1,8 +1,16 @@
-"""Fat-grid broadphase of the flagship configuration (counterpart of the
-``fat27x4`` part of ``mgf_tpu.broadphase``).
+"""Cell-grid broadphase (counterpart of the ``packed`` and ``fat27x4`` parts
+of ``mgf_tpu.broadphase``).
 
-Bodies are binned by swept-AABB center into cells of side ``cell_size``,
-addressed modulo power-of-two grid dimensions: a dense
+**packed** (the generic branch): :func:`build_grid` bins body indices into
+a ``(ncell, bucket_cap)`` table; :func:`neighbor_candidates` gathers the
+27 neighbour buckets of every body; :func:`refine_pairs` culls them by
+swept-AABB overlap and keeps the ``max_pairs`` closest.  ``lax.top_k``
+keeps the lower index among equal scores, and an unjittered lattice has
+many equal distances, so the selection is a stable descending sort.
+
+**fat27x4** (the flagship): bodies are binned by swept-AABB center into
+cells of side ``cell_size``, addressed modulo power-of-two grid
+dimensions: a dense
 ``(ncell, bucket_cap * 4)`` float table whose bucket rows carry the
 occupants' centers and indices inline (component-blocked
 ``[x*cap | y*cap | z*cap | idx*cap]``).  Building it is a stable sort +
@@ -65,6 +73,106 @@ def _bucket_ranks(sorted_h):
     return ar - run_start
 
 
+class GridTable(NamedTuple):
+    table: torch.Tensor     # (ncell, bucket_cap) int32 body index or -1
+    overflow: torch.Tensor  # () int32: bodies dropped from full buckets
+
+
+def _binned(centers: Vec3, cfg: GridConfig, valid):
+    """Bucket of every body (``ncell`` for rows kept out of the table),
+    the stable sort by bucket, and each sorted entry's rank in its
+    bucket."""
+    ncell = grid_ncells(cfg)
+    cx, cy, cz = _cell_coords(centers, cfg)
+    h = _bucket_index(cx, cy, cz, cfg)
+    if valid is not None:
+        h = torch.where(valid, h, ncell)
+    order = torch.argsort(h, stable=True)
+    sorted_h = h[order]
+    return order, sorted_h, _bucket_ranks(sorted_h)
+
+
+def build_grid(centers: Vec3, cfg: GridConfig, valid=None) -> GridTable:
+    """Bin body indices into the modular grid.  ``valid`` (N,) bool keeps
+    rows out of the table (and out of the overflow count)."""
+    ncell = grid_ncells(cfg)
+    cap = cfg.bucket_cap
+    order, sorted_h, rank = _binned(centers, cfg, valid)
+    in_table = sorted_h < ncell
+    ok = (rank < cap) & in_table
+    n_over = torch.sum((rank >= cap) & in_table).to(torch.int32)
+    # one extra sentinel slot takes the rows JAX drops (mode='drop')
+    table = torch.full((ncell * cap + 1,), -1, dtype=torch.int32,
+                       device=sorted_h.device)
+    slot = sorted_h * cap + torch.clamp(rank, max=cap - 1)
+    table[torch.where(ok, slot, ncell * cap).long()] = torch.where(
+        ok, order.to(torch.int32), -1)
+    return GridTable(table=table[:ncell * cap].reshape(ncell, cap),
+                     overflow=n_over)
+
+
+_OFFSETS = [(dx, dy, dz)
+            for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]
+
+
+def neighbor_candidates(centers: Vec3, table: GridTable, cfg: GridConfig):
+    """(N, 27*bucket_cap) candidate partner indices (-1 = empty slot)."""
+    cx, cy, cz = _cell_coords(centers, cfg)
+    cols = [table.table[_bucket_index(cx + dx, cy + dy, cz + dz, cfg).long()]
+            for (dx, dy, dz) in _OFFSETS]
+    return torch.cat(cols, dim=-1)
+
+
+def pack_bounds(bounds: AABB):
+    """AABB center + conservative cube radius as one (N, 4) tensor, so the
+    cull gathers one row per candidate."""
+    r_eff = torch.maximum(bounds.r.x, torch.maximum(bounds.r.y, bounds.r.z))
+    return torch.stack([bounds.c.x, bounds.c.y, bounds.c.z, r_eff], dim=-1)
+
+
+def refine_pairs(bounds: AABB, cand, max_pairs: int, ordered: bool = True):
+    """Cull candidates by swept-AABB overlap; keep the closest
+    ``max_pairs`` per body.  ``cand`` is the (N, K) candidate matrix of
+    body indices; ``ordered`` keeps only partners of smaller index (the
+    reference's dedupe), ``ordered=False`` both directions.  Returns
+    (partner (N, max_pairs) int32, valid)."""
+    self_rows = torch.arange(cand.shape[0], dtype=torch.int32,
+                             device=cand.device)
+    packed = pack_bounds(bounds)
+    gb = packed[torch.clamp(cand, min=0).long()]     # (N, K, 4): ONE gather
+    sb = packed[:, None, :]                          # (N, 1, 4)
+    if ordered:
+        ok = (cand >= 0) & (cand < self_rows[:, None])
+    else:
+        ok = (cand >= 0) & (cand != self_rows[:, None])
+    dx = gb[..., 0] - sb[..., 0]
+    dy = gb[..., 1] - sb[..., 1]
+    dz = gb[..., 2] - sb[..., 2]
+    rr = gb[..., 3] + sb[..., 3]
+    overlap = ((torch.abs(dx) <= rr) & (torch.abs(dy) <= rr)
+               & (torch.abs(dz) <= rr))
+    ok = ok & overlap
+    d2 = dx * dx + dy * dy + dz * dz
+    score = torch.where(ok, -d2, -float("inf"))
+    cand_ok = torch.where(ok, cand, -1)
+    if cand.shape[1] <= max_pairs:
+        partner = torch.nn.functional.pad(
+            cand_ok, (0, max_pairs - cand.shape[1]), value=-1)
+        return partner, partner >= 0
+    # lax.top_k order: descending, the lower index first among equals
+    top, idx = torch.sort(score, dim=1, descending=True, stable=True)
+    top, idx = top[:, :max_pairs], idx[:, :max_pairs]
+    valid = torch.isfinite(top)
+    partner = torch.gather(cand_ok, 1, idx)
+    return torch.where(valid, partner, -1), valid
+
+
+def all_pairs_candidates(n: int, device):
+    """O(N^2) candidate matrix for small scenes and parity tests."""
+    return torch.arange(n, dtype=torch.int32,
+                        device=device)[None, :].expand(n, n)
+
+
 class FatGrid(NamedTuple):
     """Cell table whose bucket rows carry ``[x*cap | y*cap | z*cap |
     idx*cap]`` (idx stored as ``index + 0.5``, -1 for empty) and the
@@ -87,14 +195,9 @@ def build_fat_grid(bounds: AABB, cfg: GridConfig, width: int = 4,
     ncell = grid_ncells(cfg)
     cap = cfg.bucket_cap
     r_eff = torch.maximum(bounds.r.x, torch.maximum(bounds.r.y, bounds.r.z))
-    cx, cy, cz = _cell_coords(centers, cfg)
-    h = _bucket_index(cx, cy, cz, cfg)
     if valid is not None:
-        h = torch.where(valid, h, ncell)
         r_eff = torch.where(valid, r_eff, 0.0)
-    order = torch.argsort(h, stable=True)
-    sorted_h = h[order]
-    rank = _bucket_ranks(sorted_h)
+    order, sorted_h, rank = _binned(centers, cfg, valid)
     in_table = sorted_h < ncell
     ok = (rank < cap) & in_table
     n_over = torch.sum((rank >= cap) & in_table).to(torch.int32)
@@ -103,17 +206,13 @@ def build_fat_grid(bounds: AABB, cfg: GridConfig, width: int = 4,
                          order.to(torch.float32) + 0.5], dim=-1)
     # one extra sentinel slot takes the rows JAX drops (mode='drop')
     table4 = torch.tensor([0.0, 0.0, 0.0, -1.0], dtype=torch.float32,
-                          device=h.device).repeat(ncell * cap + 1, 1)
+                          device=sorted_h.device).repeat(ncell * cap + 1, 1)
     slot = sorted_h * cap + torch.clamp(rank, max=cap - 1)
     table4[torch.where(ok, slot, ncell * cap).long()] = rows4
     table = (table4[:ncell * cap].reshape(ncell, cap, 4)
              .transpose(1, 2).reshape(ncell, 4 * cap))
     return FatGrid(table=table, overflow=n_over, width=4,
                    r_max=torch.max(r_eff))
-
-
-_OFFSETS = [(dx, dy, dz)
-            for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]
 
 
 def fat_grid_pairs(bounds: AABB, grid: FatGrid, cfg: GridConfig,

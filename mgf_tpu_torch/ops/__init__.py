@@ -1,8 +1,13 @@
 """Hand-written CUDA kernels of mgf_tpu_torch, each with its plain PyTorch
 version beside it (used for CPU tensors) and a launch counter.
 
-* ``solver_sweep.inner_sweeps`` — replaces the Pallas TPU kernel
-  ``mgf_tpu/ops/solver_sweep.py::inner_sweeps``.
+* K1 ``solver_sweep.inner_sweeps`` — replaces the Pallas TPU kernel
+  ``mgf_tpu/ops/solver_sweep.py::inner_sweeps``;
+* K2 ``narrowphase.sphere_contact_pairs`` — replaces
+  ``mgf_tpu/ops/narrowphase.py::sphere_contact_pairs``;
+* K3 ``solver_sweep.inner_sweeps_blockmajor`` — K1's kernel over the
+  block-major layout of ``scripts/micro_sweep.py::run_blockmajor``.
 
-Sources live in ``csrc/`` and are built by ``_build`` at first use.
+Sources live in ``csrc/`` and are built by ``_build`` at first use
+(``_build.build_all()`` builds every source at once).
 """

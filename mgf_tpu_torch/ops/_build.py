@@ -9,8 +9,9 @@ seconds):
 
 The library lands in ``build/mgf_tpu_torch/`` at the repository root, in a
 file named after a hash of the source, so an edited source rebuilds and an
-unchanged one loads the existing library.  A missing nvcc or a failed build
-raises; nothing falls back.
+unchanged one loads the existing library.  :func:`build_all`
+starts one nvcc per source at once and waits for all of them.  A missing
+nvcc or a failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -33,6 +34,11 @@ _loaded = {}
 BUILD_SECONDS = {}   # source name -> seconds spent in nvcc this process
 
 
+def sources():
+    """The names of the package's CUDA sources (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in _CSRC.glob("*.cu"))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -53,24 +59,43 @@ def _library_path(name: str) -> Path:
     return _BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing, then load it
-    (once per process)."""
-    if name in _loaded:
-        return _loaded[name]
-    lib_path = _library_path(name)
-    if not lib_path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def build_all(names=None):
+    """Compile every missing library of ``names`` (default: all sources),
+    one nvcc process per source, all started together.  Returns the wall
+    seconds the builds took (0.0 when nothing needed building)."""
+    todo = [n for n in (names or sources())
+            if not _library_path(n).exists()]
+    if not todo:
+        return 0.0
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, tmp, proc in procs:
+        _, err = proc.communicate()
         BUILD_SECONDS[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed building {name}.cu "
-                               f"(exit {proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, lib_path)   # atomic: concurrent builds agree
-    _loaded[name] = ctypes.CDLL(str(lib_path))
+            failed.append(f"nvcc failed building {name}.cu "
+                          f"(exit {proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, _library_path(name))   # atomic
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it
+    (once per process)."""
+    if name not in _loaded:
+        build_all([name])
+        _loaded[name] = ctypes.CDLL(str(_library_path(name)))
     return _loaded[name]

@@ -15,6 +15,11 @@ them: a CUDA call that cannot build or launch the kernel raises.
 Channel layout of the packed (18, R, N) constraint tensor (see
 :func:`pack_row_fields`): normal(3) t1(3) t2(3) ra(3), then friction, bias,
 normal_mass, tangent_mass1, tangent_mass2, valid.
+
+:func:`inner_sweeps_blockmajor` runs the same kernel over the block-major
+layout (nb, C, R, block) of ``scripts/micro_sweep.py::run_blockmajor``
+(kernel K3): the kernel takes the block width as a stride, and the
+(C, R, N) layout is the case block = N.  It is off the step path.
 """
 
 from __future__ import annotations
@@ -27,9 +32,11 @@ from mgf_tpu_torch.ops import _build
 
 _NCH = 18
 
-# kernel launches made by inner_sweeps in this process (read and reset by
-# callers that must show the main path went through the kernel)
+# kernel launches made by inner_sweeps (LAUNCHES) and by
+# inner_sweeps_blockmajor (BLOCKMAJOR_LAUNCHES) in this process (read and
+# reset by callers that must show the main path went through the kernel)
 LAUNCHES = 0
+BLOCKMAJOR_LAUNCHES = 0
 
 
 def pack_row_fields(rc) -> torch.Tensor:
@@ -97,17 +104,22 @@ def inner_sweeps_reference(S, fields, term, self_p, acc, inner_iters: int):
     return s_out, torch.stack([acc_n, acc_t1, acc_t2], dim=0)
 
 
-def _check(S, fields, term, self_p, acc):
+def _check(S, fields, term, self_p, acc, lead=()):
+    """Shapes (lead + (8, N)), (lead + (18, R, N)) ...; ``lead`` is (nb,)
+    for the block-major layout."""
     n = S.shape[-1]
-    if S.dim() != 2 or S.shape[0] != 8:
-        raise ValueError(f"S must be (8, N), got {tuple(S.shape)}")
-    if fields.dim() != 3 or fields.shape[0] != _NCH or fields.shape[2] != n:
-        raise ValueError(f"fields must be (18, R, {n}), "
+    L = len(lead)
+    if tuple(S.shape) != tuple(lead) + (8, n):
+        raise ValueError(f"S must be {tuple(lead) + (8, n)}, "
+                         f"got {tuple(S.shape)}")
+    if (fields.dim() != L + 3 or tuple(fields.shape[:L]) != tuple(lead)
+            or fields.shape[L] != _NCH or fields.shape[L + 2] != n):
+        raise ValueError(f"fields must be {tuple(lead) + (18, 'R', n)}, "
                          f"got {tuple(fields.shape)}")
-    R = fields.shape[1]
-    for name, t, shape in (("term", term, (3, R, n)),
-                           ("self_p", self_p, (2, n)),
-                           ("acc", acc, (3, R, n))):
+    R = fields.shape[L + 1]
+    for name, t, shape in (("term", term, lead + (3, R, n)),
+                           ("self_p", self_p, lead + (2, n)),
+                           ("acc", acc, lead + (3, R, n))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     for name, t in (("S", S), ("fields", fields), ("term", term),
@@ -123,17 +135,27 @@ def _check(S, fields, term, self_p, acc):
 def _lib():
     lib = _build.load("solver_sweep")
     fn = lib.mgf_solver_sweep
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def build():
-    """Build (if needed) and load the kernel's library; returns the seconds
-    nvcc took in this process (0.0 when the library was already built)."""
-    _lib()
-    return _build.BUILD_SECONDS.get("solver_sweep", 0.0)
+def _launch(S, fields, term, self_p, acc, inner_iters: int, block: int):
+    if S.device.type != "cuda":
+        raise ValueError(f"inner_sweeps runs on cuda or cpu, not {S.device}")
+    fn = _lib()
+    s_out = torch.empty_like(S)
+    acc_out = torch.empty_like(acc)
+    stream = torch.cuda.current_stream(S.device).cuda_stream
+    n_cols = S.numel() // 8
+    err = fn(S.data_ptr(), fields.data_ptr(), term.data_ptr(),
+             self_p.data_ptr(), acc.data_ptr(), s_out.data_ptr(),
+             acc_out.data_ptr(), n_cols, fields.shape[-2],
+             int(inner_iters), int(block), stream)
+    if err != 0:
+        raise RuntimeError(f"solver_sweep kernel launch failed: cudaError {err}")
+    return s_out, acc_out
 
 
 def inner_sweeps(S, fields, term, self_p, acc, inner_iters: int):
@@ -154,17 +176,46 @@ def inner_sweeps(S, fields, term, self_p, acc, inner_iters: int):
     if S.device.type == "cpu":
         return inner_sweeps_reference(S, fields, term, self_p, acc,
                                       inner_iters)
-    if S.device.type != "cuda":
-        raise ValueError(f"inner_sweeps runs on cuda or cpu, not {S.device}")
-    fn = _lib()
-    s_out = torch.empty_like(S)
-    acc_out = torch.empty_like(acc)
-    stream = torch.cuda.current_stream(S.device).cuda_stream
-    err = fn(S.data_ptr(), fields.data_ptr(), term.data_ptr(),
-             self_p.data_ptr(), acc.data_ptr(), s_out.data_ptr(),
-             acc_out.data_ptr(), S.shape[1], fields.shape[1],
-             int(inner_iters), stream)
-    if err != 0:
-        raise RuntimeError(f"solver_sweep kernel launch failed: cudaError {err}")
+    out = _launch(S, fields, term, self_p, acc, inner_iters, S.shape[1])
     LAUNCHES += 1
-    return s_out, acc_out
+    return out
+
+
+def _to_cols(x):
+    """(nb, C, [R,] block) -> (C, [R,] nb * block)."""
+    nb, block = x.shape[0], x.shape[-1]
+    return x.movedim(0, -2).reshape(*x.shape[1:-1], nb * block)
+
+
+def _to_blocks(x, nb):
+    """(C, [R,] nb * block) -> (nb, C, [R,] block)."""
+    block = x.shape[-1] // nb
+    return x.reshape(*x.shape[:-1], nb, block).movedim(-2, 0).contiguous()
+
+
+def inner_sweeps_blockmajor_reference(S, fields, term, self_p, acc,
+                                      inner_iters: int):
+    """The plain version of the block-major sweeps: re-lay the tensors out
+    as (C, R, N), run :func:`inner_sweeps_reference`, lay the result back
+    out in blocks."""
+    nb = S.shape[0]
+    s_out, acc_out = inner_sweeps_reference(
+        *(_to_cols(x) for x in (S, fields, term, self_p, acc)), inner_iters)
+    return _to_blocks(s_out, nb), _to_blocks(acc_out, nb)
+
+
+def inner_sweeps_blockmajor(S, fields, term, self_p, acc, inner_iters: int):
+    """:func:`inner_sweeps` over the block-major layout: S (nb, 8, block),
+    fields (nb, 18, R, block), term (nb, 3, R, block), self_p
+    (nb, 2, block), acc (nb, 3, R, block); column j of block b is body
+    b * block + j.  Returns (S', acc') in the same layout.  CUDA tensors
+    launch the kernel with a block stride; CPU tensors run
+    :func:`inner_sweeps_blockmajor_reference`."""
+    global BLOCKMAJOR_LAUNCHES
+    _check(S, fields, term, self_p, acc, lead=(S.shape[0],))
+    if S.device.type == "cpu":
+        return inner_sweeps_blockmajor_reference(S, fields, term, self_p,
+                                                 acc, inner_iters)
+    out = _launch(S, fields, term, self_p, acc, inner_iters, S.shape[-1])
+    BLOCKMAJOR_LAUNCHES += 1
+    return out

@@ -4,7 +4,8 @@
 The body store is one structure-of-arrays NamedTuple,
 :class:`RigidBodyState`, with the same fields as the JAX package's.  Scenes
 are assembled on the host in numpy with :class:`SceneBuilder` and moved to a
-device once, in :meth:`SceneBuilder.build`.
+device once, in :meth:`SceneBuilder.build` (the CUDA card unless the
+caller names another).
 """
 
 from __future__ import annotations
@@ -121,7 +122,7 @@ class SceneBuilder:
                          mass, restitution, friction, gravity)
         return sum(len(b['r']) for b in self._batches) - 1
 
-    def build(self, device) -> RigidBodyState:
+    def build(self, device=torch.device("cuda")) -> RigidBodyState:
         g = lambda k: np.concatenate([b[k] for b in self._batches], axis=0)
         r = g('r')
         mass = g('mass')

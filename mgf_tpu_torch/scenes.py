@@ -1,10 +1,15 @@
-"""The flagship scene: ``stress_scene`` in its spheres form (counterpart of
-``mgf_tpu.scenes.stress_scene``).
+"""Scene builders (counterpart of ``mgf_tpu.scenes``), sphere scenes.
 
-A ``layers``-deep block of r=0.5 spheres settling into an open-top box, with
-the flagship ``fused_iso`` configuration.  The positions, terrain and
-config are the JAX package's, field for field; see that module for the
-measurements behind each setting.
+* :func:`balls_scene` — the reference demo (mgf_demo/balls.rs:64-96): an
+  11^3 grid of r=0.5 spheres plus one dropped from y=130 into the demo's
+  open-top box, 20 two-phase solver sweeps, on the generic branch (packed
+  grid, dense terrain, ``terrain_rows=4``).
+* :func:`stress_scene` — the flagship: a ``layers``-deep block of r=0.5
+  spheres settling into an open-top box, on the ``fused_iso`` branch.
+
+Positions, terrain and configs are the JAX package's, field for field; see
+that module for the measurements behind each setting.  Worlds go to the
+CUDA card unless the caller names another ``device``.
 """
 
 from __future__ import annotations
@@ -14,12 +19,68 @@ import numpy as np
 from mgf_tpu_torch.broadphase import GridConfig
 from mgf_tpu_torch.physics import SceneBuilder
 from mgf_tpu_torch.world import (
-    WorldConfig, init_bp_cache, init_warm, make_world,
+    CUDA, WorldConfig, init_bp_cache, init_warm, make_world,
 )
+
+# demo terrain: open-top box, floor at y = -10, walls up to y = 0
+# (world.rs:118-150: verts at y in {0, 10} shifted by set_pos to (0,-10,0))
+_TERRAIN_VERTS = np.asarray([
+    [-10.0, 0.0, -10.0],
+    [-10.0, 0.0, 10.0],
+    [10.0, 0.0, 10.0],
+    [10.0, 0.0, -10.0],
+    [-10.0, 10.0, -10.0],
+    [-10.0, 10.0, 10.0],
+    [10.0, 10.0, 10.0],
+    [10.0, 10.0, -10.0],
+], np.float32) + np.asarray([[0.0, -10.0, 0.0]], np.float32)
+
+_TERRAIN_FACES = np.asarray([
+    (0, 1, 3), (1, 2, 3),          # floor
+    (0, 5, 1), (0, 4, 5),          # walls (world.rs:140-149)
+    (0, 3, 7), (0, 7, 4),
+    (2, 6, 3), (3, 6, 7),
+    (1, 5, 2), (2, 5, 6),
+], np.int32)
+
+
+def _grid_positions(num, shift, y_base=10.0):
+    """The demo's i/j/k grid (balls.rs:80-92)."""
+    center = shift * num / 2.0
+    pos = []
+    for i in range(num):
+        for j in range(num):
+            for k in range(num):
+                pos.append((i * shift - center,
+                            y_base + j * shift + center * 2.0,
+                            k * shift - center))
+    return pos
+
+
+def balls_scene(num: int = 11, with_dropped: bool = True,
+                solver: str = "rows", *, device=CUDA):
+    """The balls demo scene.  Returns (World, WorldConfig) with the world's
+    tensors on ``device``."""
+    b = SceneBuilder()
+    rad = 0.5
+    b.add_spheres(np.asarray(_grid_positions(num, 2.5 * rad), np.float32),
+                  rad, mass=1.0, restitution=0.3, friction=0.6)
+    if with_dropped:
+        b.add_sphere((0.0, 130.0, 0.0), rad, mass=1.0, restitution=0.3,
+                     friction=0.6)
+    world = make_world(b.build(device), _TERRAIN_VERTS, _TERRAIN_FACES,
+                       terrain_center=(0.0, -10.0, 0.0), device=device)
+    # cell 2.0 >= the worst pair reach (settled ball 0.77 + the dropped
+    # ball at terminal sweep ~1.15)
+    cfg = WorldConfig(
+        dt=1.0 / 60.0, solver_iters=20, shape_mode="spheres", solver=solver,
+        grid=GridConfig(cell_size=2.0, dim=64, bucket_cap=10),
+        max_pairs=16, fatten=0.25, terrain_rows=4)
+    return world, cfg
 
 
 def stress_scene(n_bodies: int = 100_000, mixed: bool = False, seed: int = 0,
-                 layers: int = 12, cap_frac: float = 0.25, *, device):
+                 layers: int = 12, cap_frac: float = 0.25, *, device=CUDA):
     """The 100k-body stress config (BASELINE.json config 5), spheres form.
     Returns (World, WorldConfig) with the world's tensors on ``device``."""
     if mixed:
@@ -77,6 +138,6 @@ def stress_scene(n_bodies: int = 100_000, mixed: bool = False, seed: int = 0,
         cap_manifold="mid",
         warm_gamma=1.0,
         fused_iso=True)
-    world = init_warm(world, cfg, device)
-    world = init_bp_cache(world, cfg, device)
+    world = init_warm(world, cfg)
+    world = init_bp_cache(world, cfg)
     return world, cfg

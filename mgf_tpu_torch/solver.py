@@ -9,9 +9,13 @@ iteration is one gather of the packed (8, N) body state by the (R, N)
 partner matrix, elementwise impulse math and a sum over the R axis.
 
 The slice covers ``solve_rows`` with scalar (isotropic) inertia and
-textbook friction, with warm starting, ``n_gather_rows`` and the fused
-inner-sweep kernel (``pallas_inner``, kept under the JAX package's name:
-here it selects the CUDA kernel of ``ops/solver_sweep.py``).
+textbook friction, single- and two-phase, with warm starting,
+``partner_term0``, ``n_gather_rows`` and the fused inner-sweep kernel
+(``pallas_inner``, kept under the JAX package's name: here it selects the
+CUDA kernel of ``ops/solver_sweep.py``); and both iso constraint builds:
+:func:`build_row_constraints_iso` (one 16-wide partner gather, the generic
+branch) and :func:`build_row_constraints_iso_fused` (gather-free, the
+flagship).
 """
 
 from __future__ import annotations
@@ -80,6 +84,83 @@ class PartnerFields(NamedTuple):
     inv_mass: torch.Tensor
     count: torch.Tensor    # mass-splitting contact count (clamped >= 1)
     iso: torch.Tensor      # isotropic world inverse inertia scalar
+
+
+def pack_solver_bodies_iso(bodies: BodyView, counts, iso_inv_moment):
+    """One (M, 16) table for the isotropic-inertia constraint precompute,
+    so the partner side is a single 16-wide row gather:
+
+    x.xyz v.xyz omega.xyz restitution friction inv_mass count i_iso _ _
+    """
+    z = torch.zeros_like(bodies.inv_mass)
+    cnt = counts if counts is not None else torch.ones_like(bodies.inv_mass)
+    return torch.stack([
+        bodies.x.x, bodies.x.y, bodies.x.z,
+        bodies.v.x, bodies.v.y, bodies.v.z,
+        bodies.omega.x, bodies.omega.y, bodies.omega.z,
+        bodies.restitution, bodies.friction, bodies.inv_mass, cnt,
+        iso_inv_moment, z, z], dim=-1)
+
+
+def build_row_constraints_iso(bodies: BodyView, partner, manifold: Manifold,
+                              dt, counts=None, bias_max: float = -1.0):
+    """Scalar-inertia row constraints (spheres).  ``bodies`` covers
+    M = N + 1 rows (the static terrain row last) and ``partner`` (R, N)
+    indexes them.  Returns (rc, partner_term0): the second is the first
+    sweep's partner term vb + ob x rb, which rides this gather for free."""
+    n = partner.shape[1]
+    iso = bodies.inv_moment.xx          # (M,) — diag isotropic by contract
+    tbl = pack_solver_bodies_iso(bodies, counts, iso)
+
+    sl = lambda v: Vec3(*(c[:n][None, :] for c in v))
+    xa = sl(bodies.x)
+    va, oa = sl(bodies.v), sl(bodies.omega)
+    ima = bodies.inv_mass[:n][None, :]
+    ia = iso[:n][None, :]
+    ra_ = bodies.restitution[:n][None, :]
+    fa = bodies.friction[:n][None, :]
+
+    g = tbl[partner.long()]              # (R, N, 16): ONE gather
+    xb = Vec3(g[..., 0], g[..., 1], g[..., 2])
+    vb = Vec3(g[..., 3], g[..., 4], g[..., 5])
+    ob = Vec3(g[..., 6], g[..., 7], g[..., 8])
+    rb_ = g[..., 9]
+    fb = g[..., 10]
+    imb = g[..., 11]
+    sb = g[..., 12]
+    ib = g[..., 13]
+    partner_term0 = vb + cross(ob, manifold.local_b)
+
+    restitution = torch.maximum(ra_, rb_)
+    friction = torch.sqrt(fa * fb)
+    if counts is not None:
+        sa = counts[:n][None, :]
+        ima = ima * sa
+        imb = imb * sb
+        ia = ia * sa
+        ib = ib * sb
+
+    ra = manifold.local_a
+    rb = manifold.local_b
+    nrm = manifold.normal
+    t1, t2 = manifold.t1, manifold.t2
+
+    pen = dot((rb + xb) - (ra + xa), nrm)
+    dv = vb + cross(ob, rb) - va - cross(oa, ra)
+    rel_v = dot(dv, nrm)
+    bias = contact_bias(pen, rel_v, restitution, dt, bias_max)
+
+    def eff_mass(axis):
+        return safe_div(
+            1.0, ima + ia * magnitude2(cross(ra, axis))
+            + imb + ib * magnitude2(cross(rb, axis)))
+
+    rc = RowConstraints(
+        partner=partner, ra=ra, rb=rb, normal=nrm, t1=t1, t2=t2,
+        friction=friction, bias=bias, normal_mass=eff_mass(nrm),
+        tangent_mass1=eff_mass(t1), tangent_mass2=eff_mass(t2),
+        valid=manifold.valid)
+    return rc, partner_term0
 
 
 def build_row_constraints_iso_fused(bodies: BodyView, counts,
@@ -181,8 +262,8 @@ def _normal_impulse(rc, dv: Vec3, acc_n):
 def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
                inv_moment, iters: int, friction_mode: str = "textbook",
                two_phase: bool = True, inner_iters: int = 1, warm=None,
-               return_acc: bool = False, n_gather_rows: int = None,
-               pallas_inner: bool = False):
+               return_acc: bool = False, partner_term0: Vec3 = None,
+               n_gather_rows: int = None, pallas_inner: bool = False):
     """Scatter-free row sweeps.  ``v``/``omega``/``inv_mass`` cover M >= N
     rows (N = ``rc.partner.shape[1]``); bodies ``[0, N)`` are updated and
     rows past N (statics) are returned unchanged.
@@ -192,7 +273,9 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
     velocities frozen between gathers (``iters`` gathers, ``iters *
     inner_iters`` sweeps).  ``warm`` is an optional (acc_n, acc_t1, acc_t2)
     triple of (R, N) accumulated impulses matched from the previous frame:
-    applied up front and used as the accumulator seed.  ``n_gather_rows``:
+    applied up front and used as the accumulator seed.  ``partner_term0``
+    is the first outer iteration's frozen partner term (from the constraint
+    precompute's gather); later iterations gather again.  ``n_gather_rows``:
     rows past this index have a STATIC partner, so their partner term is
     zero and the per-sweep state gather fetches only the leading rows.
     ``pallas_inner`` runs each outer iteration's inner sweeps through
@@ -262,8 +345,9 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
         fields = _ss.pack_row_fields(rc)
         self_p = torch.stack([ima, ia_s])
         acc = torch.stack(acc0)
-        for _ in range(iters):
-            t = partner_term(S)
+        for k in range(iters):
+            t = (partner_term0 if (k == 0 and partner_term0 is not None)
+                 else partner_term(S))
             term = torch.stack([t.x, t.y, t.z])
             Sn, acc = _ss.inner_sweeps(S[:, :n].contiguous(), fields, term,
                                        self_p, acc, inner_iters)
@@ -275,8 +359,9 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
 
     # the plain inner scan of the JAX package, as is
     acc_n, acc_t1, acc_t2 = acc0
-    for _ in range(iters):
-        frozen = partner_term(S)
+    for k in range(iters):
+        frozen = (partner_term0 if (k == 0 and partner_term0 is not None)
+                  else partner_term(S))
         for _ in range(inner_iters):
             dv = frozen - self_term(S)
             f1, f2, acc_t1, acc_t2 = _friction_impulses(rc, dv, acc_t1,

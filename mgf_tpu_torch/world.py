@@ -1,22 +1,41 @@
-"""The end-to-end physics step on the flagship ``fused_iso`` branch.
+"""The end-to-end physics step for spheres: the flagship ``fused_iso``
+branch and the generic branch.
 
 Counterpart of ``mgf_tpu.world`` (reference: ``mgf_demo/world.rs:227-294``,
 ``World::step``):
 
-    complete_motion -> integrate -> broadphase (cached fat grid) ->
-    narrowphase (one 18-wide partner gather) -> terrain "near" cull ->
-    manifolds -> row constraints -> warm match -> row solver
+    complete_motion -> integrate -> broadphase -> narrowphase -> terrain
+    -> manifolds -> row constraints -> [warm match] -> row solver
+
+* **fused_iso** (the flagship ``stress_scene``): the fat grid, cached
+  (``bp_every > 1``) or rebuilt every step; one 18-wide partner gather
+  that feeds the contact test and a gather-free constraint build; the
+  "near" terrain cull; warm starting; kernel K1 for the solver's inner
+  sweeps.
+* **generic** (``fused_iso=False``: the 1,332-ball demo ``balls_scene``
+  and the cold reference-schedule pile): the packed grid or the fat grid;
+  the pair contact through kernel K2 when ``pallas_narrowphase`` is set;
+  dense or "near" terrain; the 16-wide-gather constraint build over the
+  body arrays extended by one static terrain row; a cold solve (two-phase
+  with 20 sweeps in the reference schedule).
+
+Both branches keep every pair and terrain batch 2-D and slot-major,
+(width, N), so the self side of a batch is a broadcast of the body
+columns.  The JAX generic branch flattens the same batches to
+(width * N,), which is the row-major reshape of the port's;
+``collect_contacts`` returns the JAX package's flat streams.
 
 :class:`WorldConfig` keeps every field name and default of the JAX
-package's, so a config moves between the two unchanged.  Only the
-``fused_iso`` sphere branch is on this slice; any other configuration
-raises ``NotImplementedError`` naming the ROADMAP slice that brings it.
+package's, so a config moves between the two unchanged.  Configurations
+off these two branches raise ``NotImplementedError`` naming the ROADMAP
+slice that brings them.
 
 The JAX step is one jitted graph with ``lax.cond`` switches.  Here the two
 conds on ``need`` (rebuild or reuse the broadphase cache; keyed or
-positional warm matching) become ONE host read of ``need`` per step and a
-Python branch, and ``adapt_schedule`` reads ``warm_hit_frac`` on the host
-when it is set.  That costs a device->host synchronisation per step.
+positional warm matching) become ONE host read of ``need`` per cached
+step and a Python branch, and ``adapt_schedule`` reads ``warm_hit_frac``
+on the host when it is set.  That costs a device->host synchronisation
+per step.
 """
 
 from __future__ import annotations
@@ -37,12 +56,16 @@ from mgf_tpu_torch.collision import (
 from mgf_tpu_torch.geom import Sphere, Triangle
 from mgf_tpu_torch.manifold import PERSISTENT_THRESHOLD_SQ, Manifold, prune
 from mgf_tpu_torch.math3d import Quat, Vec3, dot, magnitude2, tree_map
+from mgf_tpu_torch.ops.narrowphase import sphere_contact_pairs
 from mgf_tpu_torch.physics import (
     RigidBodyState, colliders, complete_motion, integrate,
 )
 from mgf_tpu_torch.solver import (
-    BodyView, PartnerFields, build_row_constraints_iso_fused, solve_rows,
+    BodyView, PartnerFields, build_row_constraints_iso,
+    build_row_constraints_iso_fused, solve_rows,
 )
+
+CUDA = torch.device("cuda")
 
 
 class WorldConfig(NamedTuple):
@@ -73,8 +96,10 @@ class WorldConfig(NamedTuple):
                                      # init_bp_cache state)
     warm_start: bool = False         # persist accumulated impulses across
                                      # frames (needs init_warm state)
-    pallas_narrowphase: bool = False  # generic branch: pair narrowphase
-                                      # kernel (K2, not yet ported)
+    pallas_narrowphase: bool = False  # generic branch: the pair contact
+                                      # runs as kernel K2
+                                      # (ops/narrowphase.py; its plain
+                                      # PyTorch version on CPU tensors)
     pallas_solver: bool = False      # iso rows path (fused_iso, single-
                                      # phase, textbook friction): run each
                                      # outer iteration's inner sweeps as
@@ -139,8 +164,14 @@ def solver_row_count(cfg: WorldConfig, n_tris: int) -> int:
     return r
 
 
-def init_bp_cache(world: World, cfg: WorldConfig, device) -> World:
-    """Attach an (invalid) broadphase cache; the first step rebuilds."""
+def _world_device(world: World, device):
+    return world.bodies.x.x.device if device is None else device
+
+
+def init_bp_cache(world: World, cfg: WorldConfig, device=None) -> World:
+    """Attach an (invalid) broadphase cache; the first step rebuilds.  The
+    state goes to ``device``, by default the world's own."""
+    device = _world_device(world, device)
     n = world.bodies.n_bodies
     full = lambda v, dt: torch.full((n,), v, dtype=dt, device=device)
     far = full(1.0e9, torch.float32)
@@ -155,8 +186,10 @@ def init_bp_cache(world: World, cfg: WorldConfig, device) -> World:
         r_build=full(0.0, torch.float32)))
 
 
-def init_warm(world: World, cfg: WorldConfig, device) -> World:
-    """Attach a zeroed warm-start state (cfg.warm_start scenes)."""
+def init_warm(world: World, cfg: WorldConfig, device=None) -> World:
+    """Attach a zeroed warm-start state (cfg.warm_start scenes), on
+    ``device``, by default the world's own."""
+    device = _world_device(world, device)
     n = world.bodies.n_bodies
     R = solver_row_count(cfg, world.terrain.a.x.shape[0])
     z = torch.zeros((R, n), dtype=torch.float32, device=device)
@@ -167,7 +200,7 @@ def init_warm(world: World, cfg: WorldConfig, device) -> World:
 
 
 def make_world(bodies: RigidBodyState, terrain_verts=None, terrain_faces=None,
-               terrain_center=(0.0, 0.0, 0.0), *, device) -> World:
+               terrain_center=(0.0, 0.0, 0.0), *, device=CUDA) -> World:
     """Assemble a world; terrain given as (V, 3) vertices + (T, 3) faces
     (numpy).  The "grid" terrain face table is not on this slice."""
     if terrain_verts is None:
@@ -213,13 +246,54 @@ def shape_view(state: RigidBodyState) -> ShapeView:
                      shape_half_h=state.shape_half_h)
 
 
+class PackedShapes(NamedTuple):
+    """Per-body shape data packed for one wide row gather (the sphere half
+    of the JAX package's ``PackedShapes``, whose quaternion and shape-type
+    columns serve capsules)."""
+    p8: torch.Tensor          # (N, 8): x y z dx dy dz r half_h
+
+
 class GatheredShapes(NamedTuple):
-    """One side of a pair batch after the gather (spheres only here)."""
+    """One side of a pair batch (spheres only here)."""
     x: Vec3
     delta: Vec3
     sphere: Sphere
     capsule: object = None
     shape_type: torch.Tensor = None
+
+
+def pack_shapes(sv: ShapeView) -> PackedShapes:
+    return PackedShapes(p8=torch.stack(
+        [sv.x.x, sv.x.y, sv.x.z, sv.delta.x, sv.delta.y, sv.delta.z,
+         sv.shape_r, sv.shape_half_h], dim=-1))
+
+
+def self_shapes(sv: ShapeView) -> GatheredShapes:
+    """The SELF side of a slot-major (width, N) batch without a gather:
+    every slot row reads the same body arrays, so a (1, N) broadcast."""
+    exp = lambda a: a[None, :]
+    x = Vec3(exp(sv.x.x), exp(sv.x.y), exp(sv.x.z))
+    delta = Vec3(exp(sv.delta.x), exp(sv.delta.y), exp(sv.delta.z))
+    return GatheredShapes(x=x, delta=delta,
+                          sphere=Sphere(c=x, r=exp(sv.shape_r)))
+
+
+def gather_shapes(ps: PackedShapes, idx) -> GatheredShapes:
+    """The partner side: one 8-wide row gather per (slot, body) index."""
+    g = ps.p8[idx.long()]
+    x = Vec3(g[..., 0], g[..., 1], g[..., 2])
+    delta = Vec3(g[..., 3], g[..., 4], g[..., 5])
+    return GatheredShapes(x=x, delta=delta, sphere=Sphere(c=x, r=g[..., 6]))
+
+
+def _block8(g: GatheredShapes, shape):
+    """One side of a (width, N) pair batch as the contiguous component-major
+    (8, width * N) block ``[x y z dx dy dz r 0]`` kernel K2 reads."""
+    cols = [*g.x, *g.delta, g.sphere.r]
+    cols = [c.expand(shape) for c in cols]
+    cols.append(torch.zeros(shape, dtype=torch.float32,
+                            device=cols[0].device))
+    return torch.stack(cols).reshape(8, -1)
 
 
 def manifold_prox_sq(cfg: WorldConfig) -> float:
@@ -228,8 +302,24 @@ def manifold_prox_sq(cfg: WorldConfig) -> float:
     return 1.0e-4 if cfg.cap_manifold == "ends" else PERSISTENT_THRESHOLD_SQ
 
 
+def _pair_contact(ga: GatheredShapes, gb: GatheredShapes) -> Contact:
+    """Contact slots (1, width, N) for sphere pairs (receiver a, argument
+    b), the reference's loop order (world.rs:260-275)."""
+    return contact_stack([contact_moving_moving(
+        contact_sphere_moving_sphere, ga.sphere, ga.delta, gb.sphere,
+        gb.delta)])
+
+
+def _terrain_contact(gt: GatheredShapes, tri: Triangle) -> Contact:
+    """Contact slots (1, width, N) for (triangle, body) pairs, flipped so
+    the BODY is side "a" (a = body point, b = terrain point,
+    n = -triangle normal)."""
+    return contact_neg(contact_stack([contact_triangle_moving_sphere(
+        tri, gt.sphere, gt.delta)]))
+
+
 def _check_slice(cfg: WorldConfig, world: World, n_tris: int):
-    """Raise for any configuration off the fused_iso flagship slice."""
+    """Raise for any configuration off the two sphere branches."""
     off = None
     if cfg.profile_stage:
         off = ("profile_stage (becomes profiler ranges)", 14)
@@ -237,32 +327,31 @@ def _check_slice(cfg: WorldConfig, world: World, n_tris: int):
         off = (f"solver={cfg.solver!r}", 10)
     elif cfg.shape_mode != "spheres":
         off = (f"shape_mode={cfg.shape_mode!r}", 9)
-    elif not cfg.fused_iso:
-        off = ("the generic (non-fused_iso) branch", 8)
-    elif not cfg.use_grid or cfg.broadphase != "fat27x4":
+    elif not cfg.use_grid or cfg.broadphase not in ("packed", "fat27x4"):
         off = (f"broadphase={cfg.broadphase!r}/use_grid={cfg.use_grid}", 14)
-    elif cfg.bp_margin > 0.0 or cfg.bp_every <= 1 or world.bp is None:
-        off = ("a step without the bp_every cache (bp_every > 1 and "
-               "init_bp_cache state are the slice)", 14)
+    elif cfg.bp_margin > 0.0:
+        off = ("bp_margin (the fat-proxy refit cache)", 14)
     elif n_tris > 0 and cfg.terrain_bp == "grid":
         off = ("terrain_bp='grid'", 11)
-    elif cfg.terrain_rows:
-        off = ("terrain_rows", 8)
-    elif cfg.pallas_narrowphase:
-        off = ("pallas_narrowphase (kernel K2)", 8)
     elif cfg.cap_manifold != "mid":
         off = ("cap_manifold='ends'", 9)
+    elif not cfg.fused_iso and cfg.warm_start:
+        off = ("warm_start on the generic (non-fused_iso) branch", 14)
+    elif not cfg.fused_iso and cfg.solver_rows:
+        off = ("solver_rows compaction", 14)
     if off is not None:
         raise NotImplementedError(
-            f"mgf_tpu_torch runs only the fused_iso flagship branch; "
+            f"mgf_tpu_torch runs the fused_iso and generic sphere branches; "
             f"{off[0]} arrives with ROADMAP slice {off[1]}")
-    # the JAX package's own guard for the fused path
-    if (not cfg.warm_start or cfg.solver_rows or world.warm is None
+    # the JAX package's own guards
+    if cfg.fused_iso and (
+            not cfg.warm_start or cfg.solver_rows or world.warm is None
             or (n_tris > 0 and cfg.terrain_bp not in ("near", "grid"))):
         raise ValueError(
             "cfg.fused_iso requires shape_mode='spheres', solver='rows',"
             " warm_start=True, solver_rows=0, and a culled terrain_bp")
-    if cfg.warm_match == "hybrid" and not cfg.stable_pairs:
+    if (cfg.warm_start and cfg.warm_match == "hybrid"
+            and not cfg.stable_pairs):
         raise ValueError("warm_match='hybrid' requires stable_pairs")
 
 
@@ -333,13 +422,51 @@ def _match_warm(warm: SolverWarm, partner_rows, key2_rows, n: int,
     return wn, wt1, wt2, torch.any(first, dim=1)
 
 
+def _fat_pairs(bounds, alive, cfg: WorldConfig):
+    """One fat-grid candidate build (fat27x4): partner (N, K), ok,
+    overflow; canonically sorted with ``stable_pairs``."""
+    grid = broadphase.build_fat_grid(bounds, cfg.grid, width=4, valid=alive)
+    partner, pair_ok = broadphase.fat_grid_pairs(
+        bounds, grid, cfg.grid, cfg.max_pairs, ordered=False, window="27")
+    if cfg.stable_pairs:
+        partner, pair_ok = _stable_sort_pairs(partner, pair_ok)
+    return partner, pair_ok, grid.overflow
+
+
+def _man_to_rows(man: Manifold, width: int, n: int) -> Manifold:
+    """Manifold over slot-major (S, width, N) pairs -> (S * width, N)
+    solver rows; the per-pair fields repeat for each slot."""
+    S = man.valid.shape[0]
+    slotf = lambda x: x.reshape(S * width, n)
+    pairf = lambda x: x.reshape(1, width, n).expand(S, width, n).reshape(-1, n)
+    return Manifold(time=pairf(man.time), normal=tree_map(pairf, man.normal),
+                    t1=tree_map(pairf, man.t1), t2=tree_map(pairf, man.t2),
+                    local_a=tree_map(slotf, man.local_a),
+                    local_b=tree_map(slotf, man.local_b),
+                    valid=slotf(man.valid))
+
+
+def _top_terrain_rows(tman: Manifold, t_key2, kk: int):
+    """Keep the top-``kk`` terrain rows of every body, valid and earliest
+    first (score valid * (2 - time)).  ``lax.top_k`` keeps the lower row
+    among equal scores, and ties are certain (every invalid row scores 0,
+    every overlap 2), so a stable descending sort; the kept order is the
+    order the solver sums the rows in."""
+    score = tman.valid.to(torch.float32) * (2.0 - tman.time)
+    t_idx = torch.sort(score.T, dim=1, descending=True,
+                       stable=True).indices[:, :kk].T       # (kk, N)
+    sel = lambda f: torch.gather(f, 0, t_idx)
+    return tree_map(sel, tman), sel(t_key2)
+
+
 def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
-    """One physics frame on the fused_iso branch (World::step,
-    world.rs:227-294).  Returns (new_world, metrics dict of device
-    tensors).  ``collect_contacts`` adds the raw pair and terrain contact
-    streams with their index vectors to the metrics."""
+    """One physics frame (World::step, world.rs:227-294).  Returns
+    (new_world, metrics dict of device tensors).  ``collect_contacts``
+    adds the raw pair and terrain contact streams with their index vectors
+    to the metrics, in the JAX package's flat layout."""
     n_tris = world.terrain.a.x.shape[0]
     _check_slice(cfg, world, n_tris)
+    fused = cfg.fused_iso
     state = complete_motion(world.bodies)
     state = integrate(state, cfg.dt, iso=True)
     n = state.n_bodies
@@ -348,7 +475,7 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     sv = shape_view(state)
     light = cfg.light_metrics
 
-    # ---- broadphase: staleness-gated cache around the fat grid ----
+    # ---- broadphase: packed grid, or the fat grid (cached or not) ----
     alive = state.shape_r > 0.0
     body_bounds = sphere_aabb(colliders(sv))
     bounds = broadphase.swept_fat_bounds(body_bounds, state.delta, cfg.fatten)
@@ -377,75 +504,89 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
             min=0.0)
 
     bp = world.bp
-    x_end = state.x + state.delta
-    drift2 = magnitude2(x_end - bp.anchor)
-    dmag = torch.sqrt(magnitude2(state.delta))
-    desired = (cfg.bp_every - 1) * (2.0 * dmag + 0.02)
-    budget = torch.clamp(0.5 * guarantee - r_eff, min=0.0)
-    slack = torch.minimum(desired, budget)
-    r_grow = torch.clamp(r_eff - bp.r_build, min=0.0)
-    stale = torch.max(torch.where(
-        alive, torch.sqrt(drift2) + r_grow - bp.slack, 0.0)) > 0.0
-    need = ((bp.count % cfg.bp_every) == 0) | stale
-    # the one host read of the step: rebuild or reuse (JAX: lax.cond)
-    rebuild = bool(need)
-    if rebuild:
-        fat_bounds = broadphase.swept_fat_bounds(body_bounds, state.delta,
-                                                 cfg.fatten + cfg.bp_margin)
-        fat_bounds = fat_bounds._replace(r=Vec3(
-            fat_bounds.r.x + slack, fat_bounds.r.y + slack,
-            fat_bounds.r.z + slack))
-        grid = broadphase.build_fat_grid(fat_bounds, cfg.grid, width=4,
-                                         valid=alive)
-        partner, pair_ok = broadphase.fat_grid_pairs(
-            fat_bounds, grid, cfg.grid, cfg.max_pairs, ordered=False,
-            window="27")
+    new_bp = bp
+    rebuild = True
+    need = torch.tensor(True, device=dev)
+    bp_drift_excess = f32(0.0)
+    if cfg.broadphase == "packed":
+        table = broadphase.build_grid(bounds.c, cfg.grid, valid=alive)
+        cand = broadphase.neighbor_candidates(bounds.c, table, cfg.grid)
+        partner, pair_ok = broadphase.refine_pairs(bounds, cand,
+                                                   cfg.max_pairs,
+                                                   ordered=False)
         if cfg.stable_pairs:
             partner, pair_ok = _stable_sort_pairs(partner, pair_ok)
-        new_bp = BpCache(partner=partner, ok=pair_ok, anchor=x_end,
-                         overflow=grid.overflow, count=bp.count + 1,
-                         slack=slack, r_build=r_eff)
-        bp_drift_excess = f32(0.0)
+        overflow = table.overflow
+    elif cfg.bp_every > 1 and bp is not None:
+        # staleness-gated cache around the fat grid
+        x_end = state.x + state.delta
+        drift2 = magnitude2(x_end - bp.anchor)
+        dmag = torch.sqrt(magnitude2(state.delta))
+        desired = (cfg.bp_every - 1) * (2.0 * dmag + 0.02)
+        budget = torch.clamp(0.5 * guarantee - r_eff, min=0.0)
+        slack = torch.minimum(desired, budget)
+        r_grow = torch.clamp(r_eff - bp.r_build, min=0.0)
+        stale = torch.max(torch.where(
+            alive, torch.sqrt(drift2) + r_grow - bp.slack, 0.0)) > 0.0
+        need = ((bp.count % cfg.bp_every) == 0) | stale
+        # the one host read of the step: rebuild or reuse (JAX: lax.cond)
+        rebuild = bool(need)
+        if rebuild:
+            fat_bounds = broadphase.swept_fat_bounds(
+                body_bounds, state.delta, cfg.fatten + cfg.bp_margin)
+            fat_bounds = fat_bounds._replace(r=Vec3(
+                fat_bounds.r.x + slack, fat_bounds.r.y + slack,
+                fat_bounds.r.z + slack))
+            partner, pair_ok, overflow = _fat_pairs(fat_bounds, alive, cfg)
+            new_bp = BpCache(partner=partner, ok=pair_ok, anchor=x_end,
+                             overflow=overflow, count=bp.count + 1,
+                             slack=slack, r_build=r_eff)
+        else:
+            partner, pair_ok = bp.partner, bp.ok
+            new_bp = bp._replace(count=bp.count + 1)
+            bp_drift_excess = torch.clamp(torch.max(torch.where(
+                alive, torch.sqrt(drift2) - bp.slack, 0.0)), min=0.0)
+        overflow = new_bp.overflow
     else:
-        partner, pair_ok = bp.partner, bp.ok
-        new_bp = bp._replace(count=bp.count + 1)
-        bp_drift_excess = torch.clamp(torch.max(torch.where(
-            alive, torch.sqrt(drift2) - bp.slack, 0.0)), min=0.0)
-    overflow = new_bp.overflow
+        partner, pair_ok, overflow = _fat_pairs(bounds, alive, cfg)
 
-    # ---- body-body narrowphase over the slot-major (K, N) partner rows ----
+    # ---- body-body narrowphase over slot-major (K, N) partner rows ----
     K = partner.shape[1]
     partner_t = partner.T
     pair_ok_t = pair_ok.T
     cols2 = torch.where(pair_ok_t, partner_t, 0)
-    # previous frame's mass-splitting counts, from the warm state
-    cnt_prev = torch.clamp(torch.sum(
-        (world.warm.partner != -9).to(torch.float32), dim=0), min=1.0)
-    pw = torch.stack([
-        sv.x.x, sv.x.y, sv.x.z,
-        sv.delta.x, sv.delta.y, sv.delta.z, sv.shape_r,
-        state.v.x, state.v.y, state.v.z,
-        state.omega.x, state.omega.y, state.omega.z,
-        state.restitution, state.friction, state.inv_mass,
-        cnt_prev, state.inv_moment.xx], dim=-1)   # (N, 18)
-    g18 = pw[cols2.long()]                        # (K, N, 18) — THE gather
-    gx = Vec3(g18[..., 0], g18[..., 1], g18[..., 2])
-    gd = Vec3(g18[..., 3], g18[..., 4], g18[..., 5])
-    gb = GatheredShapes(x=gx, delta=gd, sphere=Sphere(c=gx, r=g18[..., 6]))
-    exp = lambda a: a[None, :]
-    gax = Vec3(exp(sv.x.x), exp(sv.x.y), exp(sv.x.z))
-    gad = Vec3(exp(sv.delta.x), exp(sv.delta.y), exp(sv.delta.z))
-    ga = GatheredShapes(x=gax, delta=gad,
-                        sphere=Sphere(c=gax, r=exp(sv.shape_r)))
-    pf = PartnerFields(
-        x_end=gx + gd,
-        v=Vec3(g18[..., 7], g18[..., 8], g18[..., 9]),
-        omega=Vec3(g18[..., 10], g18[..., 11], g18[..., 12]),
-        restitution=g18[..., 13], friction=g18[..., 14],
-        inv_mass=g18[..., 15], count=g18[..., 16], iso=g18[..., 17])
-    pc = contact_stack([contact_moving_moving(
-        contact_sphere_moving_sphere, ga.sphere, ga.delta, gb.sphere,
-        gb.delta)])                               # slots (1, K, N)
+    ga = self_shapes(sv)                          # (1, N) broadcasts
+    if fused:
+        # previous frame's mass-splitting counts, from the warm state
+        cnt_prev = torch.clamp(torch.sum(
+            (world.warm.partner != -9).to(torch.float32), dim=0), min=1.0)
+        pw = torch.stack([
+            sv.x.x, sv.x.y, sv.x.z,
+            sv.delta.x, sv.delta.y, sv.delta.z, sv.shape_r,
+            state.v.x, state.v.y, state.v.z,
+            state.omega.x, state.omega.y, state.omega.z,
+            state.restitution, state.friction, state.inv_mass,
+            cnt_prev, state.inv_moment.xx], dim=-1)   # (N, 18)
+        g18 = pw[cols2.long()]                    # (K, N, 18) — THE gather
+        gx = Vec3(g18[..., 0], g18[..., 1], g18[..., 2])
+        gd = Vec3(g18[..., 3], g18[..., 4], g18[..., 5])
+        gb = GatheredShapes(x=gx, delta=gd,
+                            sphere=Sphere(c=gx, r=g18[..., 6]))
+        pf = PartnerFields(
+            x_end=gx + gd,
+            v=Vec3(g18[..., 7], g18[..., 8], g18[..., 9]),
+            omega=Vec3(g18[..., 10], g18[..., 11], g18[..., 12]),
+            restitution=g18[..., 13], friction=g18[..., 14],
+            inv_mass=g18[..., 15], count=g18[..., 16], iso=g18[..., 17])
+    else:
+        gb = gather_shapes(pack_shapes(sv), cols2)   # (K, N) partner side
+    if cfg.pallas_narrowphase and not fused:
+        # kernel K2 on (8, K*N) blocks: the self side is the body columns
+        # repeated per slot, the partner side the gathered rows
+        c = sphere_contact_pairs(_block8(ga, (K, n)), _block8(gb, (K, n)))
+        pc = contact_stack([tree_map(lambda x: x.reshape(K, n), c)])
+    else:
+        pc = _pair_contact(ga, gb)                # slots (1, K, N)
     pc = pc._replace(valid=pc.valid & pair_ok_t[None])
     lc = LocalContact(local_a=pc.a - (ga.x + ga.delta * pc.t),
                       local_b=pc.b - (gb.x + gb.delta * pc.t),
@@ -454,99 +595,140 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     pair_manifold = prune(lc, max_contacts=1, prox_sq=prox)
     max_pen = f32(0.0) if light else _deepest(pc)
 
-    def man_to_rows(man: Manifold, width):
-        """Single-slot manifold over (width, N) -> (width, N) rows."""
-        return Manifold(time=man.time, normal=man.normal, t1=man.t1,
-                        t2=man.t2, local_a=man.local_a[0],
-                        local_b=man.local_b[0], valid=man.valid[0])
-
-    blocks = [man_to_rows(pair_manifold, K)]
-    partners = [torch.where(pair_ok_t, partner_t, n)]
-    key2s = [torch.zeros((K, n), dtype=torch.int32, device=dev)]
-
-    # ---- terrain narrowphase: the "near" cull ----
+    # ---- terrain narrowphase: dense, or the "near" cull ----
     if n_tris > 0:
-        t_cand, t_ok = _near_terrain(world, state, cfg)
-        if cfg.stable_pairs:
-            tb = 1 << 28
-            tcs = torch.sort(torch.where(t_ok, t_cand, tb), dim=1).values
-            tdup = torch.zeros_like(t_ok)
-            tdup[:, 1:] = tcs[:, 1:] == tcs[:, :-1]
-            t_ok = (tcs < tb) & ~tdup
-            t_cand = torch.where(t_ok, tcs, 0)
-        t_width = cfg.terrain_cand
-        t_tris = torch.where(t_ok, t_cand, 0).T        # (T_w, N)
-        t_valid = t_ok.T
-        ta_ = world.terrain
-        tpack = torch.stack([ta_.a.x, ta_.a.y, ta_.a.z,
-                             ta_.b.x, ta_.b.y, ta_.b.z,
-                             ta_.c.x, ta_.c.y, ta_.c.z], dim=-1)  # (T, 9)
-        gtri = tpack[t_tris.long()]
-        tri = Triangle(a=Vec3(gtri[..., 0], gtri[..., 1], gtri[..., 2]),
-                       b=Vec3(gtri[..., 3], gtri[..., 4], gtri[..., 5]),
-                       c=Vec3(gtri[..., 6], gtri[..., 7], gtri[..., 8]))
-        gt = ga
-        tc = contact_neg(contact_stack([contact_triangle_moving_sphere(
-            tri, gt.sphere, gt.delta)]))
-        tc = tc._replace(valid=tc.valid & t_valid[None])
-        t_lc = LocalContact(local_a=tc.a - (gt.x + gt.delta * tc.t),
+        if cfg.terrain_bp == "near":
+            t_cand, t_ok = _near_terrain(world, state, cfg)
+            if cfg.stable_pairs:
+                tb = 1 << 28
+                tcs = torch.sort(torch.where(t_ok, t_cand, tb), dim=1).values
+                tdup = torch.zeros_like(t_ok)
+                tdup[:, 1:] = tcs[:, 1:] == tcs[:, :-1]
+                t_ok = (tcs < tb) & ~tdup
+                t_cand = torch.where(t_ok, tcs, 0)
+            t_width = cfg.terrain_cand
+            t_tris = torch.where(t_ok, t_cand, 0).T        # (T_w, N)
+            t_valid = t_ok.T
+            ta_ = world.terrain
+            tpack = torch.stack([ta_.a.x, ta_.a.y, ta_.a.z,
+                                 ta_.b.x, ta_.b.y, ta_.b.z,
+                                 ta_.c.x, ta_.c.y, ta_.c.z], dim=-1)
+            gtri = tpack[t_tris.long()]
+            tri = Triangle(
+                a=Vec3(gtri[..., 0], gtri[..., 1], gtri[..., 2]),
+                b=Vec3(gtri[..., 3], gtri[..., 4], gtri[..., 5]),
+                c=Vec3(gtri[..., 6], gtri[..., 7], gtri[..., 8]))
+        else:
+            # dense: every (triangle, body) pair, triangles down the rows
+            t_width = n_tris
+            t_tris = torch.arange(n_tris, dtype=torch.int32, device=dev)[
+                :, None].expand(n_tris, n)
+            t_valid = None
+            tri = tree_map(lambda x: x[:, None].expand(n_tris, n),
+                           world.terrain)
+        tc = _terrain_contact(ga, tri)                 # slots (1, T_w, N)
+        if t_valid is not None:
+            tc = tc._replace(valid=tc.valid & t_valid[None])
+        t_lc = LocalContact(local_a=tc.a - (ga.x + ga.delta * tc.t),
                             local_b=tc.b - world.terrain_center,
                             contact=tc)
-        blocks.append(man_to_rows(prune(t_lc, max_contacts=1, prox_sq=prox),
-                                  t_width))
-        partners.append(torch.full((t_width, n), n, dtype=torch.int32,
-                                   device=dev))
-        key2s.append(t_tris)
+        t_manifold = prune(t_lc, max_contacts=1, prox_sq=prox)
         if not light:
             max_pen = torch.maximum(max_pen, _deepest(tc))
 
-    # ---- scatter-free row constraints, gather-free precompute ----
+    # ---- scatter-free row constraints ----
+    S_pair = pair_manifold.valid.shape[0]
+    blocks = [_man_to_rows(pair_manifold, K, n)]
+    partners = [torch.where(pair_ok_t, partner_t, n)[None].expand(
+        S_pair, K, n).reshape(-1, n)]
+    # warm-start row keys: pair rows by manifold slot id, terrain rows by
+    # triangle id (their partner is the static row n: no collision)
+    key2s = [torch.arange(S_pair, dtype=torch.int32, device=dev)[
+        :, None, None].expand(S_pair, K, n).reshape(-1, n)]
+    if n_tris > 0:
+        tman = _man_to_rows(t_manifold, t_width, n)    # (S*T_w, N)
+        t_key2 = t_tris.reshape(1, t_width, n).expand(
+            S_pair, t_width, n).reshape(-1, n)
+        t_rows_n = tman.valid.shape[0]
+        if cfg.terrain_rows and t_rows_n > cfg.terrain_rows:
+            tman, t_key2 = _top_terrain_rows(tman, t_key2, cfg.terrain_rows)
+            t_rows_n = cfg.terrain_rows
+        blocks.append(tman)
+        partners.append(torch.full((t_rows_n, n), n, dtype=torch.int32,
+                                   device=dev))
+        key2s.append(t_key2)
     man_rows = tree_map(lambda *xs: torch.cat(xs, dim=0), *blocks)
     partner_rows = torch.cat(partners, dim=0)
     key2_rows = torch.cat(key2s, dim=0)
-    n_pair_rows = K
-    bv = BodyView(x=state.x + state.delta, v=state.v, omega=state.omega,
-                  restitution=state.restitution, friction=state.friction,
-                  inv_mass=state.inv_mass, inv_moment=state.inv_moment)
-    rc = build_row_constraints_iso_fused(
-        bv, cnt_prev, pf, partner_rows, man_rows, cfg.dt,
-        world.terrain_center, n_pair_rows, bias_max=cfg.bias_max)
     rc_valid = man_rows.valid
+    warm_hit_frac = f32(0.0)
+    new_warm = world.warm
 
-    # ---- warm matching (JAX hybrid: lax.cond on the same `need`) ----
-    search = (cfg.warm_match == "search"
-              or (cfg.warm_match == "hybrid" and rebuild))
-    wn, wt1, wt2, matched = _match_warm(world.warm, partner_rows, key2_rows,
-                                        n, n_tris, search)
-    if cfg.warm_gamma != 1.0:
-        g = cfg.warm_gamma
-        wn, wt1, wt2 = wn * g, wt1 * g, wt2 * g
-    warm = (wn, wt1, wt2)
-    use_pk = (cfg.pallas_solver and not cfg.two_phase
-              and cfg.friction_mode == "textbook")
+    if fused:
+        # gather-free precompute: pair-row partner fields rode the
+        # narrowphase gather, terrain rows have the static body as partner
+        n_pair_rows = S_pair * K
+        bv = BodyView(x=state.x + state.delta, v=state.v, omega=state.omega,
+                      restitution=state.restitution, friction=state.friction,
+                      inv_mass=state.inv_mass, inv_moment=state.inv_moment)
+        rc = build_row_constraints_iso_fused(
+            bv, cnt_prev, pf, partner_rows, man_rows, cfg.dt,
+            world.terrain_center, n_pair_rows, bias_max=cfg.bias_max)
 
-    def run_solve(it, inner):
-        return solve_rows(rc, state.v, state.omega, state.inv_mass,
-                          state.inv_moment.xx, it, cfg.friction_mode,
-                          cfg.two_phase, inner, warm=warm, return_acc=True,
-                          n_gather_rows=n_pair_rows, pallas_inner=use_pk)
-
-    warm_hit_frac = (
-        torch.sum((matched & rc_valid).to(torch.float32))
-        / torch.clamp(torch.sum(rc_valid.to(torch.float32)), min=1.0))
-    schedule = (cfg.solver_iters, cfg.solver_inner)
-    if cfg.adapt_schedule is not None:
-        # JAX: lax.cond on the device; here a second host read
-        thr, it2, in2 = cfg.adapt_schedule
-        if float(warm_hit_frac) >= thr:
-            schedule = (int(it2), int(in2))
-    v, omega, acc = run_solve(*schedule)
-    new_warm = SolverWarm(partner=torch.where(rc_valid, partner_rows, -9),
-                          key2=key2_rows, acc_n=acc[0], acc_t1=acc[1],
-                          acc_t2=acc[2])
+        # warm matching (JAX hybrid: lax.cond on the same `need`)
+        search = (cfg.warm_match == "search"
+                  or (cfg.warm_match == "hybrid" and rebuild))
+        wn, wt1, wt2, matched = _match_warm(world.warm, partner_rows,
+                                            key2_rows, n, n_tris, search)
+        if cfg.warm_gamma != 1.0:
+            g = cfg.warm_gamma
+            wn, wt1, wt2 = wn * g, wt1 * g, wt2 * g
+        use_pk = (cfg.pallas_solver and not cfg.two_phase
+                  and cfg.friction_mode == "textbook")
+        warm_hit_frac = (
+            torch.sum((matched & rc_valid).to(torch.float32))
+            / torch.clamp(torch.sum(rc_valid.to(torch.float32)), min=1.0))
+        schedule = (cfg.solver_iters, cfg.solver_inner)
+        if cfg.adapt_schedule is not None:
+            # JAX: lax.cond on the device; here a second host read
+            thr, it2, in2 = cfg.adapt_schedule
+            if float(warm_hit_frac) >= thr:
+                schedule = (int(it2), int(in2))
+        v, omega, acc = solve_rows(
+            rc, state.v, state.omega, state.inv_mass, state.inv_moment.xx,
+            schedule[0], cfg.friction_mode, cfg.two_phase, schedule[1],
+            warm=(wn, wt1, wt2), return_acc=True, n_gather_rows=n_pair_rows,
+            pallas_inner=use_pk)
+        new_warm = SolverWarm(partner=torch.where(rc_valid, partner_rows, -9),
+                              key2=key2_rows, acc_n=acc[0], acc_t1=acc[1],
+                              acc_t2=acc[2])
+    else:
+        # mass splitting: every contact of body i is in column i; the
+        # static terrain row (index n) counts 1
+        counts = torch.clamp(torch.cat([
+            torch.sum(rc_valid, dim=0).to(torch.float32),
+            torch.ones((1,), dtype=torch.float32, device=dev)]), min=1.0)
+        srow = lambda g: torch.cat([g, torch.zeros(
+            (1,) + g.shape[1:], dtype=g.dtype, device=dev)], dim=0)
+        bodies_ext = BodyView(
+            x=Vec3(*(torch.cat([g, c.reshape(1)]) for g, c in zip(
+                state.x + state.delta, world.terrain_center))),
+            v=tree_map(srow, state.v), omega=tree_map(srow, state.omega),
+            restitution=srow(state.restitution),
+            friction=srow(state.friction),   # Static{friction: 0}, world.rs:247
+            inv_mass=srow(state.inv_mass),
+            inv_moment=tree_map(srow, state.inv_moment))
+        rc, pt0 = build_row_constraints_iso(
+            bodies_ext, partner_rows, man_rows, cfg.dt, counts=counts,
+            bias_max=cfg.bias_max)
+        v, omega = solve_rows(
+            rc, bodies_ext.v, bodies_ext.omega, bodies_ext.inv_mass,
+            bodies_ext.inv_moment.xx, cfg.solver_iters, cfg.friction_mode,
+            cfg.two_phase, cfg.solver_inner, partner_term0=pt0)
 
     # NOTE: ``delta`` keeps its pre-solve value, as in the JAX package
-    vt, ot = v[:n], omega[:n]
+    vt = Vec3(*(c[:n] for c in v))
+    ot = Vec3(*(c[:n] for c in omega))
     if light:
         dv_norm = f32(0.0)
     else:
@@ -576,13 +758,11 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     }
     if collect_contacts:
         flat = lambda c: tree_map(lambda x: x.reshape(x.shape[0], -1), c)
-        rows = torch.arange(n, dtype=torch.int32,
-                            device=dev)[None, :].expand(K, n).reshape(-1)
-        metrics["pair_contacts"] = dict(i=rows, j=cols2.reshape(-1),
+        rows = lambda w: torch.arange(n, dtype=torch.int32, device=dev)[
+            None, :].expand(w, n).reshape(-1)
+        metrics["pair_contacts"] = dict(i=rows(K), j=cols2.reshape(-1),
                                         contact=flat(pc))
         if n_tris > 0:
             metrics["terrain_contacts"] = dict(
-                i=torch.arange(n, dtype=torch.int32, device=dev)[None, :]
-                .expand(t_width, n).reshape(-1),
-                tri=t_tris.reshape(-1), contact=flat(tc))
+                i=rows(t_width), tri=t_tris.reshape(-1), contact=flat(tc))
     return world._replace(bodies=state, warm=new_warm, bp=new_bp), metrics

@@ -1,14 +1,24 @@
-"""Where the time goes in one mgf_tpu_torch flagship step on a CUDA card.
+"""Where the time goes in one mgf_tpu_torch step on a CUDA card.
 
-Steps ``stress_scene(--bodies)`` through ``AdaptiveChunkStepper`` (chunk 16,
-light interior metrics) for ``--warmup`` steps, times ``--steps`` more with
-the host clock (synchronised per chunk), then traces one more window with
+``--scene`` picks the path:
+
+* ``flagship`` (default): ``stress_scene(--bodies)`` on the fused_iso
+  branch through ``AdaptiveChunkStepper``;
+* ``cold20``: the same pile on the generic branch with the reference's
+  solver schedule (warm starting off, 20 two-phase sweeps, kernel K2 on;
+  bench.py's ``stress_cold20`` row);
+* ``balls``: the demo ``balls_scene(11)`` (1,332 bodies, K2 on).
+
+Steps the scene in chunks of ``--chunk`` (light interior metrics) for
+``--warmup`` steps, times ``--steps`` more with the host clock
+(synchronised per chunk), then traces one more chunk with
 ``torch.profiler`` and prints: steps/s, device busy share of the traced
-window (sum of kernel times over wall time), kernel launches per step, the
-K1 share, and the top kernels by device time.  The full table goes to
-``--out``.
+window (sum of kernel times over wall time), device operations per step,
+the K1 and K2 shares, and the top kernels by device time.  The full table
+goes to ``--out``.
 
     python3 scripts/torch_profile_step.py --bodies 100000 --warmup 600
+    python3 scripts/torch_profile_step.py --scene cold20 --warmup 180
 
 Needs a CUDA card; imports no JAX.
 """
@@ -26,9 +36,39 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from mgf_tpu_torch.driver import AdaptiveChunkStepper  # noqa: E402
-from mgf_tpu_torch.ops import solver_sweep  # noqa: E402
-from mgf_tpu_torch.scenes import stress_scene  # noqa: E402
+from mgf_tpu_torch.driver import (  # noqa: E402
+    AdaptiveChunkStepper, make_chunk_step,
+)
+from mgf_tpu_torch.ops import narrowphase, solver_sweep  # noqa: E402
+from mgf_tpu_torch.scenes import balls_scene, stress_scene  # noqa: E402
+
+WARMUP = {"flagship": 600, "cold20": 180, "balls": 280}
+
+
+class _Plain:
+    """Fixed-schedule chunks with the AdaptiveChunkStepper interface."""
+
+    def __init__(self, cfg, chunk):
+        self.run = make_chunk_step(cfg, light=True)
+        self.chunk = chunk
+        self.hot_on = False
+
+    def step_chunk(self, world):
+        return self.run(world, torch.ones((self.chunk,), device="cuda"))
+
+
+def _stepper(scene, bodies, chunk):
+    if scene == "balls":
+        world, cfg = balls_scene(11)
+        return world, _Plain(cfg._replace(pallas_narrowphase=True), chunk)
+    world, cfg = stress_scene(bodies)
+    if scene == "flagship":
+        return world, AdaptiveChunkStepper(cfg, chunk=chunk, light=True)
+    cfg = cfg._replace(warm_start=False, fused_iso=False,
+                       warm_match="search", adapt_schedule=None,
+                       solver_iters=20, solver_inner=1, two_phase=True,
+                       pallas_narrowphase=True)
+    return world._replace(warm=None), _Plain(cfg, chunk)
 
 
 def _dev_time(ev):
@@ -40,8 +80,11 @@ def _dev_time(ev):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--scene", choices=sorted(WARMUP), default="flagship")
     ap.add_argument("--bodies", type=int, default=100_000)
-    ap.add_argument("--warmup", type=int, default=600)
+    ap.add_argument("--warmup", type=int, default=None,
+                    help="steps before timing (default: 600 flagship, "
+                         "180 cold20, 280 balls)")
     ap.add_argument("--steps", type=int, default=128)
     ap.add_argument("--chunk", type=int, default=16)
     ap.add_argument("--out", default="build/profile_torch.txt")
@@ -52,12 +95,14 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"device: {smi}")
-    world, cfg = stress_scene(args.bodies, device="cuda")
-    st = AdaptiveChunkStepper(cfg, chunk=args.chunk, light=True)
+    warmup = WARMUP[args.scene] if args.warmup is None else args.warmup
+    world, st = _stepper(args.scene, args.bodies, args.chunk)
     t0 = time.perf_counter()
-    world, m = st.run(world, args.warmup)
+    for _ in range(-(-warmup // args.chunk)):
+        world, m = st.step_chunk(world)
     torch.cuda.synchronize()
-    print(f"warmup {args.warmup} steps: {time.perf_counter() - t0:.2f} s")
+    print(f"scene {args.scene}, {world.bodies.n_bodies} bodies; warmup "
+          f"{warmup} steps: {time.perf_counter() - t0:.2f} s")
 
     n_chunks = max(args.steps // args.chunk, 1)
     rebuilds, t_run = 0, 0.0
@@ -79,6 +124,7 @@ def main():
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     solver_sweep.LAUNCHES = 0
+    narrowphase.LAUNCHES = 0
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         world, m = st.step_chunk(world)
@@ -89,13 +135,17 @@ def main():
                if getattr(e, "device_type", None) == torch.autograd
                .DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    k1_us = sum(e.time_range.elapsed_us() for e in kernels
-                if "solver_sweep" in e.name)
+    share = lambda tag: sum(e.time_range.elapsed_us() for e in kernels
+                            if tag in e.name)
+    k1_us, k2_us = share("solver_sweep"), share("sphere_contact")
     print(f"traced {args.chunk} steps ({rebuilt} rebuilds): wall "
           f"{1e3 * wall:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
           f"({100.0 * busy_us / (1e6 * wall):.1f}% busy), "
-          f"{len(kernels) / args.chunk:.0f} kernels/step, K1 "
-          f"{k1_us / 1e3:.2f} ms ({solver_sweep.LAUNCHES} launches)")
+          f"{len(kernels) / args.chunk:.0f} device operations/step, K1 "
+          f"{k1_us / 1e3:.2f} ms ({solver_sweep.LAUNCHES} launches, "
+          f"{100.0 * k1_us / max(busy_us, 1):.1f}% of device time), K2 "
+          f"{k2_us / 1e3:.2f} ms ({narrowphase.LAUNCHES} launches, "
+          f"{100.0 * k2_us / max(busy_us, 1):.1f}% of device time)")
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=40)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

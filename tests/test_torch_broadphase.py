@@ -112,3 +112,86 @@ def test_bucket_ranks_runs():
     got = tbp._bucket_ranks(torch.as_tensor(h)).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, [0, 1, 2, 0, 1, 0, 0, 1, 2, 3])
+
+
+@pytest.fixture(scope="module")
+def lattice():
+    """The unjittered 217-ball demo lattice (balls_scene(6)) one frame into
+    its fall: every centre sits on the 1.25 lattice, so many candidates
+    tie on distance and the top-k tie order decides the slots."""
+    from mgf_tpu.scenes import balls_scene
+    world, cfg = balls_scene(6)
+    x = np.stack([np.asarray(c) for c in world.bodies.x], -1)
+    delta = np.tile(np.asarray([[0.0, -9.8 / 3600.0, 0.0]], np.float32),
+                    (x.shape[0], 1))
+    r = np.asarray(world.bodies.shape_r)
+    return x, delta, r, cfg
+
+
+@pytest.mark.parametrize("cap,ordered", [(10, False), (3, False),
+                                         (10, True)])
+def test_packed_grid_pairs_exact(lattice, cap, ordered):
+    """build_grid + neighbor_candidates + refine_pairs bit-exact against
+    mgf_tpu: the demo's cap-10 grid, and a cap-3 grid whose full buckets
+    overflow (the stable sort's rank order decides who is dropped)."""
+    x, delta, r, cfg = lattice
+    jv = lambda a: JVec3(*(jnp.asarray(a[:, k]) for k in range(3)))
+    tv = lambda a: TVec3(*(torch.as_tensor(np.ascontiguousarray(a[:, k]))
+                           for k in range(3)))
+    jg = jbp.GridConfig(cell_size=cfg.grid.cell_size, dim=cfg.grid.dim,
+                        bucket_cap=cap)
+    tg = tbp.GridConfig(cell_size=cfg.grid.cell_size, dim=cfg.grid.dim,
+                        bucket_cap=cap)
+    zero = np.zeros_like(r)
+    jb = _bounds((jbp, j_sphere_aabb, JSphere), jv, jnp.asarray,
+                 x, delta, r, zero, cfg.fatten)
+    tb = _bounds((tbp, t_sphere_aabb, TSphere), tv, torch.as_tensor,
+                 x, delta, r, zero, cfg.fatten)
+    alive = np.ones(r.shape, bool)
+    alive[5] = False                        # a dead row stays out
+    jt = jbp.build_grid(jb.c, jg, valid=jnp.asarray(alive))
+    tt = tbp.build_grid(tb.c, tg, valid=torch.as_tensor(alive))
+    np.testing.assert_array_equal(np.asarray(jt.table), tt.table.numpy())
+    assert int(jt.overflow) == int(tt.overflow)
+    assert (int(tt.overflow) > 0) == (cap == 3)
+    jc = jbp.neighbor_candidates(jb.c, jt, jg)
+    tc = tbp.neighbor_candidates(tb.c, tt, tg)
+    np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
+    jp, jok = jbp.refine_pairs(jb, jc, cfg.max_pairs, ordered=ordered)
+    tp, tok = tbp.refine_pairs(tb, tc, cfg.max_pairs, ordered=ordered)
+    np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
+    np.testing.assert_array_equal(np.asarray(jok), tok.numpy())
+    assert tp.dtype == torch.int32
+    # ties really decide slots: some body has more candidates in reach
+    # than max_pairs, at equal distances
+    assert ((tc.numpy() >= 0).sum(axis=1)).max() > cfg.max_pairs
+    if not ordered:
+        assert tok.numpy().sum(axis=1).max() == cfg.max_pairs
+    jp, jok = jworld._stable_sort_pairs(jp, jok)
+    tp, tok = tworld._stable_sort_pairs(tp, tok)
+    np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
+
+
+def test_all_pairs_refine_exact(lattice):
+    """refine_pairs over the O(N^2) candidate matrix, both pad and top-k
+    paths, bit-exact against mgf_tpu."""
+    x, delta, r, cfg = lattice
+    n = 40
+    x, delta, r = x[:n], delta[:n], r[:n]
+    jv = lambda a: JVec3(*(jnp.asarray(a[:, k]) for k in range(3)))
+    tv = lambda a: TVec3(*(torch.as_tensor(np.ascontiguousarray(a[:, k]))
+                           for k in range(3)))
+    zero = np.zeros_like(r)
+    jb = _bounds((jbp, j_sphere_aabb, JSphere), jv, jnp.asarray,
+                 x, delta, r, zero, 0.5)
+    tb = _bounds((tbp, t_sphere_aabb, TSphere), tv, torch.as_tensor,
+                 x, delta, r, zero, 0.5)
+    jc = jbp.all_pairs_candidates(n)
+    tc = tbp.all_pairs_candidates(n, "cpu")
+    np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
+    for max_pairs in (8, n + 4):
+        jp, jok = jbp.refine_pairs(jb, jc, max_pairs, ordered=False)
+        tp, tok = tbp.refine_pairs(tb, tc, max_pairs, ordered=False)
+        np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
+        np.testing.assert_array_equal(np.asarray(jok), tok.numpy())
+        assert tok.numpy().any()

@@ -1,5 +1,6 @@
-"""mgf_tpu_torch imports neither jax nor mgf_tpu (the machine with the card
-has no JAX), and importing it initialises no CUDA context."""
+"""mgf_tpu_torch and chip_smoke.py import neither jax nor mgf_tpu (the
+machine with the card has no JAX), and importing them initialises no CUDA
+context."""
 
 import json
 import os
@@ -37,3 +38,26 @@ def test_port_imports_no_jax():
     assert bad == [], bad
     assert cuda_init is False
     assert n_modules >= 15
+
+
+_SMOKE_PROBE = """
+import json, sys
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "mgf_tpu" or m.startswith("mgf_tpu."))
+import torch
+print(json.dumps([bad, torch.cuda.is_initialized(),
+                  callable(chip_smoke.main)]))
+"""
+
+
+def test_chip_smoke_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _SMOKE_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    bad, cuda_init, has_main = json.loads(
+        out.stdout.strip().splitlines()[-1])
+    assert bad == [], bad
+    assert cuda_init is False and has_main

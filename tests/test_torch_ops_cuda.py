@@ -1,11 +1,14 @@
-"""Kernel K1 (mgf_tpu_torch/ops/csrc/solver_sweep.cu) against its plain
-PyTorch version on the card.  Runs only where CUDA is available: each test
-takes the ``cuda_device`` fixture, which skips without a card (decided at
-run time, never at import).
+"""Kernels K1 and K3 (mgf_tpu_torch/ops/csrc/solver_sweep.cu, the (C, R, N)
+and block-major layouts) and K2 (ops/csrc/sphere_contact.cu) against their
+plain PyTorch versions on the card.  Runs only where CUDA is available:
+each test takes the ``cuda_device`` fixture, which skips without a card
+(decided at run time, never at import).
 
-Tolerance atol 2e-4 / rtol 1e-4 (as tests/test_solver_sweep.py): the
-kernel sums rows sequentially with fused multiply-adds, the plain version
-through torch reductions in another order.
+Tolerances: K1/K3 atol 2e-4 / rtol 1e-4 (as tests/test_solver_sweep.py):
+the kernel sums rows sequentially with fused multiply-adds, the plain
+version through torch reductions in another order.  K2: valid exactly, t
+and n atol 1e-4, witness points atol 1e-3 (tests/test_ops_native.py's
+gate; rsqrtf is approximate).
 """
 
 import numpy as np
@@ -13,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from mgf_tpu_torch.ops import narrowphase as nph  # noqa: E402
 from mgf_tpu_torch.ops import solver_sweep as ss  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -68,3 +72,63 @@ def test_kernel_rejects_bad_inputs(cuda_device):
         ss.inner_sweeps(S, f[:, :, :32], term, sp, acc, 2)
     with pytest.raises(ValueError):
         ss.inner_sweeps(S.cpu(), f, term, sp, acc, 2)
+
+
+def _to_blocks(x, block):
+    """(C, [R,] N) -> (N // block, C, [R,] block), contiguous."""
+    nb = x.shape[-1] // block
+    return x.reshape(*x.shape[:-1], nb, block).movedim(-2, 0).contiguous()
+
+
+@pytest.mark.parametrize("block,inner", [(512, 1), (2048, 8), (256, 3)])
+def test_blockmajor_kernel_matches_plain(cuda_device, block, inner):
+    args = _rows(12, 8192, cuda_device, seed=2)
+    blk = [_to_blocks(x, block) for x in args]
+    before, before_k1 = ss.BLOCKMAJOR_LAUNCHES, ss.LAUNCHES
+    s_k, a_k = ss.inner_sweeps_blockmajor(*blk, inner)
+    assert ss.BLOCKMAJOR_LAUNCHES == before + 1
+    assert ss.LAUNCHES == before_k1
+    s_p, a_p = ss.inner_sweeps_blockmajor_reference(*blk, inner)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s_k, s_p, atol=2e-4, rtol=1e-4)
+    torch.testing.assert_close(a_k, a_p, atol=2e-4, rtol=1e-4)
+    # the same sweeps as K1 on the (C, R, N) layout
+    s1, _ = ss.inner_sweeps(*args, inner)
+    torch.testing.assert_close(s_k, _to_blocks(s1, block), atol=1e-6,
+                               rtol=0)
+
+
+def _pair_blocks(P, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    ga = rng.standard_normal((8, P)).astype(np.float32)
+    gb = rng.standard_normal((8, P)).astype(np.float32)
+    ga[6] = np.abs(ga[6]) + 0.1
+    gb[6] = np.abs(gb[6]) + 0.1
+    gb[:, 0] = ga[:, 0]              # coincident centres, equal sweeps
+    gb[:3, 1] = ga[:3, 1]            # coincident centres, moving
+    return (torch.as_tensor(ga, device=dev), torch.as_tensor(gb, device=dev))
+
+
+@pytest.mark.parametrize("P", [900_000, 4096, 1000])
+def test_sphere_contact_kernel_matches_plain(cuda_device, P):
+    ga, gb = _pair_blocks(P, cuda_device)
+    before = nph.LAUNCHES
+    ck = nph.sphere_contact_pairs(ga, gb)
+    assert nph.LAUNCHES == before + 1
+    cp = nph.sphere_contact_pairs_reference(ga, gb)
+    torch.cuda.synchronize()
+    assert torch.equal(ck.valid, cp.valid)
+    v = cp.valid
+    assert bool(v[1]) and not bool(v[0])
+    for a, b in zip([*ck.n, ck.t], [*cp.n, cp.t]):
+        torch.testing.assert_close(a[v], b[v], atol=1e-4, rtol=0)
+    for a, b in zip([*ck.a, *ck.b], [*cp.a, *cp.b]):
+        torch.testing.assert_close(a[v], b[v], atol=1e-3, rtol=0)
+
+
+def test_sphere_contact_rejects_bad_inputs(cuda_device):
+    ga, gb = _pair_blocks(64, cuda_device)
+    with pytest.raises(ValueError):
+        nph.sphere_contact_pairs(ga, gb.cpu())
+    with pytest.raises(ValueError):
+        nph.sphere_contact_pairs(ga[:, :32], gb)

@@ -112,9 +112,7 @@ def _assert_stream(js, ts, approach):
     assert (dt[~fast] * s[~fast] <= 1e-6).all()
 
 
-def test_one_step_matches_jax(jax_run):
-    states, cfg, _ = jax_run
-    jw = states[120]
+def _assert_one_step_matches_jax(jw, cfg):
     fc = jax.jit(functools.partial(j_step, cfg=cfg, collect_contacts=True))
     jw2, jm = fc(jw)
     jm, jw2 = _np_tree(jm), _np_tree(jw2)
@@ -152,6 +150,7 @@ def test_one_step_matches_jax(jax_run):
             np.testing.assert_allclose(a, b, atol=1e-6, rtol=0, err_msg=f)
     # the carried state: broadphase cache exactly, warm rows exactly,
     # accumulators on live rows at the solver tolerance
+    assert (jw2.bp is None) == (tw2n.bp is None)
     for a, b in zip(_leaves(jw2.bp), _leaves(tw2n.bp)):
         np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
     np.testing.assert_array_equal(jw2.warm.partner, tw2n.warm.partner)
@@ -162,6 +161,19 @@ def test_one_step_matches_jax(jax_run):
                                    getattr(tw2n.warm, f)[live], atol=2e-4,
                                    rtol=1e-4, err_msg=f)
 
+
+def test_one_step_matches_jax(jax_run):
+    states, cfg, _ = jax_run
+    _assert_one_step_matches_jax(states[120], cfg)
+
+
+def test_one_step_uncached_fat_grid_matches_jax(jax_run):
+    """bp_every=1 and no cache state on the fused branch: the fat grid is
+    built afresh from this step's bounds (mgf_tpu/world.py:828-831), at
+    the tolerances above."""
+    states, cfg, _ = jax_run
+    _assert_one_step_matches_jax(states[120]._replace(bp=None),
+                                 cfg._replace(bp_every=1))
 
 def test_sixteen_steps_guards_match_jax(jax_run):
     states, cfg, f = jax_run
@@ -326,6 +338,31 @@ def test_step_honours_adapt_schedule(settled):
                                   w_f.bodies.v.x.numpy())
 
 
+def test_bp_every_trajectory_parity_settled(settled):
+    """Port twin of tests/test_step_features.py's test of the same name: on
+    the settled pile the cached candidate list (bp_every=2) is a superset
+    of the fresh one (bp_every=1, the uncached fat-grid build, no cache
+    state) whose extras are out of contact range, so trajectories track
+    to the same two-tier noise band as the JAX package's (candidate slot
+    membership differs between cached and fresh lists, so row order and
+    f32 rounding differ)."""
+    world, cfg = settled
+    cfg2 = cfg._replace(bp_every=2)
+    w2, ms2 = _steps(world, cfg2, 24, collect=("broadphase_rebuilt",))
+    w1, ms1 = _steps(world._replace(bp=None), cfg._replace(bp_every=1), 24,
+                     collect=("broadphase_rebuilt",
+                              "broadphase_cache_drift_excess"))
+    assert w1.bp is None
+    assert all(m["broadphase_rebuilt"] for m in ms1)
+    assert all(m["broadphase_cache_drift_excess"] == 0.0 for m in ms1)
+    d = np.abs(_pos(w2) - _pos(w1))
+    assert d.max() < 0.02, d.max()
+    assert (d > 5e-3).mean() < 0.01, (d > 5e-3).mean()
+    assert np.median(d) < 1e-3, np.median(d)
+    rebuilt = [bool(m["broadphase_rebuilt"]) for m in ms2]
+    assert 12 <= sum(rebuilt) <= 18, rebuilt
+
+
 def test_off_slice_configs_raise(settled):
     world, cfg = settled
     for bad in (cfg._replace(fused_iso=False),
@@ -333,7 +370,7 @@ def test_off_slice_configs_raise(settled):
                 cfg._replace(terrain_bp="grid"),
                 cfg._replace(shape_mode="mixed"),
                 cfg._replace(solver="parallel"),
-                cfg._replace(bp_every=1)):
+                cfg._replace(bp_margin=0.5)):
         with pytest.raises(NotImplementedError):
             step(world, bad)
     with pytest.raises(ValueError):
