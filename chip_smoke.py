@@ -10,12 +10,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
 2. build every kernel source (ops/csrc/*.cu) with nvcc, one process per
    source, all started together, timed;
 3. K1 against its plain PyTorch version at the flagship shapes (R=12 rows,
-   N=100,000 bodies, 4 and 6 inner sweeps, warm accumulators), with both
-   times from CUDA events; tolerance atol 2e-4 / rtol 1e-4 on the state and
-   on the accumulators of valid rows;
+   N=100,000 bodies, 4 and 6 inner sweeps, warm accumulators) in both
+   modes: term mode (the frozen partner term given) and gather mode (K=9
+   pair rows gathered in the kernel from neighbour partners, invalid rows
+   out of range), with both times from CUDA events; tolerance atol 2e-4 /
+   rtol 1e-4 on the state and on the accumulators of valid rows; beside
+   them the time of the torch launches gather mode replaced in each outer
+   iteration (gather, term, zero rows, stack, the state's cat);
 4. the main path: stress_scene(100_000) stepped 256 steps by
    AdaptiveChunkStepper(chunk=16, light=True), with the physics guards
    checked and K1's launch count held to the solver's outer iterations
+   (one gather-mode launch per outer iteration)
    (every kernel's count is set to 0 before each path, [4], [7] and [8],
    and read after it; the kernels line sums them);
 5. kernel path against plain path end to end: an 8,000-body pile stepped
@@ -67,6 +72,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 K1_OPS_PER_ROW_SWEEP = 83     # dv, friction, normal, impulse, sums
 K1_OPS_PER_COL_SWEEP = 12     # the velocity update
+K1_OPS_PER_GATHER_ROW = 12    # gather mode: vb + wb x rb, once per call
 K2_OPS_PER_PAIR = 170
 
 
@@ -77,10 +83,16 @@ def bound(n_bytes, n_ops):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def sweep_bound(R, N, inner):
-    """K1/K3: S, fields, term, self_p, acc in; S', acc' out."""
-    n_bytes = 4 * ((8 + 2 + 8) * N + (18 + 3 + 3 + 3) * R * N)
-    n_ops = inner * (K1_OPS_PER_ROW_SWEEP * R * N + K1_OPS_PER_COL_SWEEP * N)
+def sweep_bound(R, N, inner, K=None):
+    """K1/K3 in term mode: S, fields, term, self_p, acc in; S', acc' out.
+    Gather mode (``K`` pair rows, an (8, N) state): the K rows' partner
+    index and rb in place of the term."""
+    term_rows = 3 if K is None else 0
+    gather = 0 if K is None else K * N
+    n_bytes = 4 * ((8 + 2 + 8) * N + (18 + 3 + 3 + term_rows) * R * N
+                   + 4 * gather)
+    n_ops = (inner * (K1_OPS_PER_ROW_SWEEP * R * N + K1_OPS_PER_COL_SWEEP * N)
+             + K1_OPS_PER_GATHER_ROW * gather)
     return bound(n_bytes, n_ops)
 
 
@@ -143,26 +155,72 @@ def _time_ms(fn, reps=20):
     return e0.elapsed_time(e1) / reps
 
 
+def _flagship_partners(valid, K, dev, seed=0):
+    """(R, N) int32 row partners and (3, K, N) partner contact points for
+    gather mode: each of the K pair rows points at a neighbour of the
+    column in stress_scene's initial block (index i * side * 12 + j * 12 +
+    k, side 92), rows that are not valid at N (out of range, as the
+    flagship's invalid pair rows)."""
+    R, N = valid.shape
+    rng = np.random.default_rng(seed)
+    offs = np.asarray([dk + 12 * dj + 12 * 92 * di for di in (-1, 0, 1)
+                       for dj in (-1, 0, 1) for dk in (-1, 0, 1)
+                       if (di, dj, dk) != (0, 0, 0)])
+    partner = (np.arange(N)[None, :] + rng.choice(offs, (R, N))) % N
+    partner[~valid.cpu().numpy()] = N
+    rb = rng.standard_normal((3, K, N)) * 0.4
+    return (torch.as_tensor(partner.astype(np.int32), device=dev),
+            torch.as_tensor(rb.astype(np.float32), device=dev))
+
+
+def _replaced_glue(ss, S, index, rb, R):
+    """The torch launches that ran around K1 in each outer iteration before
+    the gather moved into the kernel: the row-major partner gather, the
+    term, the zero tail rows, the stack, the state's slice and its cat
+    after the kernel (the slice's copy is free where M = N)."""
+    term = torch.stack(ss.partner_term(S, index, rb, R))
+    n = term.shape[-1]
+    return torch.cat([S[:, :n].contiguous(), S[:, n:]], dim=1), term
+
+
 def phase_kernel(ss, dev):
-    args, valid = _flagship_rows(12, 100_000, dev)
+    R, N, K = 12, N_MAIN, 9
+    args, valid = _flagship_rows(R, N, dev)
+    partner, rb = _flagship_partners(valid, K, dev)
+    S, fields, _, self_p, acc = args
+    gargs = (S, fields, partner, rb, self_p, acc)
+    index = ss.partner_index(partner, K, N)
+    glue_ms = _time_ms(lambda: _replaced_glue(ss, S, index, rb, R))
     out = {}
-    for inner in (4, 6):
-        s_k, a_k = ss.inner_sweeps(*args, inner)
-        s_p, a_p = ss.inner_sweeps_reference(*args, inner)
-        torch.cuda.synchronize()
-        err_s = float((s_k - s_p).abs().max())
-        err_a = float((a_k - a_p).abs()[:, valid].max())
-        torch.testing.assert_close(s_k, s_p, **TOL)
-        torch.testing.assert_close(a_k[:, valid], a_p[:, valid], **TOL)
-        ms = _time_ms(lambda: ss.inner_sweeps(*args, inner))
-        plain_ms = _time_ms(lambda: ss.inner_sweeps_reference(*args, inner))
-        b_ms, b_by = sweep_bound(12, 100_000, inner)
-        out[inner] = dict(err=max(err_s, err_a), ms=ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by)
-        print(f"[3] K1 R=12 N=100000 inner={inner}: max_abs_err state "
-              f"{err_s:.3g} acc {err_a:.3g} (atol 2e-4, rtol 1e-4); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+    for mode in ("term", "gather"):
+        for inner in (4, 6):
+            if mode == "term":
+                run = lambda: ss.inner_sweeps(*args, inner)
+                plain = lambda: ss.inner_sweeps_reference(*args, inner)
+                b_ms, b_by = sweep_bound(R, N, inner)
+            else:
+                run = lambda: ss.inner_sweeps_gather(*gargs, inner, K)
+                plain = lambda: ss.inner_sweeps_gather_reference(
+                    *gargs, inner, K)
+                b_ms, b_by = sweep_bound(R, N, inner, K)
+            (s_k, a_k), (s_p, a_p) = run(), plain()
+            torch.cuda.synchronize()
+            err_s = float((s_k - s_p).abs().max())
+            err_a = float((a_k - a_p).abs()[:, valid].max())
+            torch.testing.assert_close(s_k, s_p, **TOL)
+            torch.testing.assert_close(a_k[:, valid], a_p[:, valid], **TOL)
+            ms = _time_ms(run)
+            plain_ms = _time_ms(plain)
+            out[(mode, inner)] = dict(err=max(err_s, err_a), ms=ms,
+                                      plain_ms=plain_ms, bound_ms=b_ms,
+                                      bound_by=b_by)
+            print(f"[3] K1 {mode} mode R={R} N={N} inner={inner}: "
+                  f"max_abs_err state {err_s:.3g} acc {err_a:.3g} (atol "
+                  f"2e-4, rtol 1e-4); kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
+    print(f"[3] the torch launches gather mode replaced, per outer "
+          f"iteration (K={K}): {glue_ms:.4f} ms", flush=True)
     return out
 
 
@@ -493,13 +551,14 @@ def main():
 
     # no single PyTorch call computes K1, K2 or K3: library_ms is null.
     # launches: each kernel's count summed over the three paths ([4], [7],
-    # [8]).  K1 at the main path's settled shape (inner 6); K2 at the cold
-    # pile's 900,000 pairs; K3 at block 1024, inner 8
+    # [8]).  K1 in gather mode at the main path's settled shape (inner 6);
+    # K2 at the cold pile's 900,000 pairs; K3 at block 1024, inner 8
     print(json.dumps({"kernels": [
         row("solver_sweep.inner_sweeps",
             "mgf_tpu_torch/ops/csrc/solver_sweep.cu",
             "mgf_tpu/ops/solver_sweep.py:113", launches["K1"],
-            dict(k1[6], err=max(v["err"] for v in k1.values()))),
+            dict(k1[("gather", 6)],
+                 err=max(v["err"] for v in k1.values()))),
         row("narrowphase.sphere_contact_pairs",
             "mgf_tpu_torch/ops/csrc/sphere_contact.cu",
             "mgf_tpu/ops/narrowphase.py:110", launches["K2"], k2),

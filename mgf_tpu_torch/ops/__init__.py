@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels of mgf_tpu_torch, each with its plain PyTorch
 version beside it (used for CPU tensors) and a launch counter.
 
-* K1 ``solver_sweep.inner_sweeps`` — replaces the Pallas TPU kernel
-  ``mgf_tpu/ops/solver_sweep.py::inner_sweeps``;
+* K1 ``solver_sweep.inner_sweeps`` and ``inner_sweeps_gather`` (the same
+  kernel with the partner gather inside) — replaces the Pallas TPU kernel
+  ``mgf_tpu/ops/solver_sweep.py::inner_sweeps`` and the gather before it;
 * K2 ``narrowphase.sphere_contact_pairs`` — replaces
   ``mgf_tpu/ops/narrowphase.py::sphere_contact_pairs``;
 * K3 ``solver_sweep.inner_sweeps_blockmajor`` — K1's kernel over the

@@ -10,9 +10,10 @@ partner matrix, elementwise impulse math and a sum over the R axis.
 
 The slice covers ``solve_rows`` with scalar (isotropic) inertia and
 textbook friction, single- and two-phase, with warm starting,
-``partner_term0``, ``n_gather_rows`` and the fused inner-sweep kernel
-(``pallas_inner``, kept under the JAX package's name: here it selects the
-CUDA kernel of ``ops/solver_sweep.py``); and both iso constraint builds:
+``partner_term0``, ``n_gather_rows`` and the fused gather + inner-sweep
+kernel (``pallas_inner``, kept under the JAX package's name: here it
+selects the CUDA kernel of ``ops/solver_sweep.py``); and both iso
+constraint builds:
 :func:`build_row_constraints_iso` (one 16-wide partner gather, the generic
 branch) and :func:`build_row_constraints_iso_fused` (gather-free, the
 flagship).
@@ -28,6 +29,7 @@ from mgf_tpu_torch.manifold import Manifold
 from mgf_tpu_torch.math3d import (
     Mat3, Vec3, cross, dot, magnitude2, safe_div,
 )
+from mgf_tpu_torch.ops import solver_sweep as _ss
 
 # DefaultContactConstraintParams (solver.rs:276-279)
 PENETRATION_SLOP = 0.05
@@ -278,9 +280,11 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
     precompute's gather); later iterations gather again.  ``n_gather_rows``:
     rows past this index have a STATIC partner, so their partner term is
     zero and the per-sweep state gather fetches only the leading rows.
-    ``pallas_inner`` runs each outer iteration's inner sweeps through
-    :func:`mgf_tpu_torch.ops.solver_sweep.inner_sweeps` (the CUDA kernel on
-    a card; single-phase textbook friction only).
+    ``pallas_inner`` runs each outer iteration, partner gather and inner
+    sweeps, as one call of
+    :func:`mgf_tpu_torch.ops.solver_sweep.inner_sweeps_gather` (of
+    ``inner_sweeps`` where ``partner_term0`` gives the term): the CUDA
+    kernel on a card, R <= 32 rows, single-phase textbook friction only.
 
     Returns (v, omega) for all M rows, plus the (R, N) accumulator triple
     with ``return_acc``.
@@ -296,22 +300,7 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
     ia_s = inv_moment[:n]
     R_tot = rc.partner.shape[0]
     K = R_tot if n_gather_rows is None else min(n_gather_rows, R_tot)
-    # JAX clamps out-of-range gather indices; invalid pair rows carry
-    # partner = n, which lies past an N-row state, so clamp explicitly
-    # (the rows are masked by `valid` afterwards)
-    gather_idx = torch.clamp(rc.partner[:K], max=M - 1).long()
     rb_k = Vec3(*(c[:K] for c in rc.rb))
-    pad_rows = R_tot - K
-
-    def partner_term(S):
-        # row-major state gather: one contiguous 8-float row per index
-        g = S.T[gather_idx]                          # (K, N, 8)
-        term = Vec3(g[..., 0], g[..., 1], g[..., 2]) + cross(
-            Vec3(g[..., 3], g[..., 4], g[..., 5]), rb_k)
-        if pad_rows:
-            zt = torch.zeros((pad_rows, n), dtype=S.dtype, device=S.device)
-            term = Vec3(*(torch.cat([c, zt], dim=0) for c in term))
-        return term
 
     def self_term(S):
         va = Vec3(S[0, :n][None], S[1, :n][None], S[2, :n][None])
@@ -341,23 +330,34 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
         if two_phase:
             raise ValueError("pallas_inner requires the single-phase "
                              "textbook-friction iso (scalar inertia) path")
-        from mgf_tpu_torch.ops import solver_sweep as _ss
+        # one kernel launch per outer iteration: the partner gather runs
+        # inside it (gather mode), except where partner_term0 is given
         fields = _ss.pack_row_fields(rc)
         self_p = torch.stack([ima, ia_s])
         acc = torch.stack(acc0)
+        rb = torch.stack(tuple(rb_k))
+        partner = rc.partner.to(torch.int32).contiguous()
         for k in range(iters):
-            t = (partner_term0 if (k == 0 and partner_term0 is not None)
-                 else partner_term(S))
-            term = torch.stack([t.x, t.y, t.z])
-            Sn, acc = _ss.inner_sweeps(S[:, :n].contiguous(), fields, term,
-                                       self_p, acc, inner_iters)
-            S = torch.cat([Sn, S[:, n:]], dim=1)
+            if k == 0 and partner_term0 is not None:
+                t = partner_term0
+                Sn, acc = _ss.inner_sweeps(
+                    S[:, :n].contiguous(), fields,
+                    torch.stack([t.x, t.y, t.z]), self_p, acc, inner_iters)
+                S = torch.cat([Sn, S[:, n:]], dim=1)
+            else:
+                S, acc = _ss.inner_sweeps_gather(S, fields, partner, rb,
+                                                 self_p, acc, inner_iters, K)
         out = unpack_body_state(S)
         if return_acc:
             return out + ((acc[0], acc[1], acc[2]),)
         return out
 
     # the plain inner scan of the JAX package, as is
+    gather_idx = _ss.partner_index(rc.partner, K, M)
+
+    def partner_term(S):
+        return Vec3(*_ss.partner_term(S, gather_idx, rb_k, R_tot))
+
     acc_n, acc_t1, acc_t2 = acc0
     for k in range(iters):
         frozen = (partner_term0 if (k == 0 and partner_term0 is not None)

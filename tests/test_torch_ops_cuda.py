@@ -1,6 +1,7 @@
-"""Kernels K1 and K3 (mgf_tpu_torch/ops/csrc/solver_sweep.cu, the (C, R, N)
-and block-major layouts) and K2 (ops/csrc/sphere_contact.cu) against their
-plain PyTorch versions on the card.  Runs only where CUDA is available:
+"""Kernels K1 (mgf_tpu_torch/ops/csrc/solver_sweep.cu in term and gather
+mode), K3 (the same kernel over the block-major layout) and K2
+(ops/csrc/sphere_contact.cu) against their plain PyTorch versions on the
+card.  Runs only where CUDA is available:
 each test takes the ``cuda_device`` fixture, which skips without a card
 (decided at run time, never at import).
 
@@ -52,18 +53,70 @@ def _rows(R, N, dev, seed=0):
             t(rng.uniform(0.0, 0.3, (3, R, N))))
 
 
-@pytest.mark.parametrize("R,N,inner", [(12, 100_000, 4), (12, 100_000, 6),
-                                       (5, 1000, 3), (12, 700, 1)])
-def test_kernel_matches_plain(cuda_device, R, N, inner):
+def _gather_inputs(args, M, K, seed=1):
+    """Gather-mode inputs from _rows' term-mode ones: the (8, M) state
+    (statics past N), (R, N) partners with out-of-range entries (= N and
+    = M) on rows that are not valid, and (3, K, N) partner contact
+    points."""
+    S, fields, _, self_p, acc = args
+    R, N = fields.shape[1:]
+    dev = S.device
+    rng = np.random.default_rng(seed)
+    S_full = torch.as_tensor(rng.standard_normal((8, M)).astype(np.float32),
+                             device=dev)
+    S_full[:, :N] = S
+    partner = rng.integers(0, M, (R, N))
+    bad = (~fields[17].bool().cpu().numpy()) & (rng.uniform(size=(R, N)) < 0.5)
+    partner[bad] = np.where(rng.uniform(size=int(bad.sum())) < 0.5, N, M)
+    rb = rng.standard_normal((3, K, N)).astype(np.float32) * 0.4
+    return (S_full, fields, torch.as_tensor(partner.astype(np.int32),
+                                            device=dev),
+            torch.as_tensor(rb, device=dev), self_p, acc)
+
+
+_SHAPES = [(12, 100_000, 4), (12, 100_000, 6), (5, 1000, 3), (12, 700, 1),
+           (1, 700, 3), (1, 100_000, 1), (32, 1000, 6), (32, 100_000, 4),
+           (5, 100_000, 6), (32, 700, 1)]
+
+
+@pytest.mark.parametrize("mode", ["term", "gather"])
+@pytest.mark.parametrize("R,N,inner", _SHAPES)
+def test_kernel_matches_plain(cuda_device, mode, R, N, inner):
     args = _rows(R, N, cuda_device)
     before = ss.LAUNCHES
-    s_k, a_k = ss.inner_sweeps(*args, inner)
+    if mode == "term":
+        s_k, a_k = ss.inner_sweeps(*args, inner)
+        s_p, a_p = ss.inner_sweeps_reference(*args, inner)
+        S = args[0]
+    else:
+        # flagship-like: statics past N, the last 3 rows static (K < R)
+        gin = _gather_inputs(args, N + 3, max(R - 3, 0))
+        s_k, a_k = ss.inner_sweeps_gather(*gin, inner, max(R - 3, 0))
+        s_p, a_p = ss.inner_sweeps_gather_reference(*gin, inner,
+                                                    max(R - 3, 0))
+        S = gin[0]
     assert ss.LAUNCHES == before + 1
-    s_p, a_p = ss.inner_sweeps_reference(*args, inner)
     torch.cuda.synchronize()
     torch.testing.assert_close(s_k, s_p, atol=2e-4, rtol=1e-4)
     torch.testing.assert_close(a_k, a_p, atol=2e-4, rtol=1e-4)
-    assert torch.equal(s_k[6:], args[0][6:])
+    assert torch.equal(s_k[6:], S[6:])
+    assert torch.equal(s_k[:, N:], S[:, N:])
+
+
+@pytest.mark.parametrize("K,extra", [(12, 0), (9, 0), (0, 5), (4, 1000)])
+def test_gather_kernel_partner_edges(cuda_device, K, extra):
+    """Gather mode on purpose: partners out of range (= N, = M), static
+    tail rows (K < R, K = 0), M > N with the tail columns returned
+    unchanged, partners past N (statics) read from the input state."""
+    R, N = 12, 4000
+    args = _rows(R, N, cuda_device, seed=3)
+    gin = _gather_inputs(args, N + extra, K, seed=4)
+    s_k, a_k = ss.inner_sweeps_gather(*gin, 5, K)
+    s_p, a_p = ss.inner_sweeps_gather_reference(*gin, 5, K)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s_k, s_p, atol=2e-4, rtol=1e-4)
+    torch.testing.assert_close(a_k, a_p, atol=2e-4, rtol=1e-4)
+    assert torch.equal(s_k[:, N:], gin[0][:, N:])
 
 
 def test_kernel_rejects_bad_inputs(cuda_device):
@@ -72,6 +125,16 @@ def test_kernel_rejects_bad_inputs(cuda_device):
         ss.inner_sweeps(S, f[:, :, :32], term, sp, acc, 2)
     with pytest.raises(ValueError):
         ss.inner_sweeps(S.cpu(), f, term, sp, acc, 2)
+    # R = 33 is more than a CUDA block of 32 x R threads holds
+    with pytest.raises(ValueError):
+        ss.inner_sweeps(*_rows(33, 64, cuda_device), 2)
+    gin = _gather_inputs(_rows(33, 64, cuda_device), 64, 30)
+    with pytest.raises(ValueError):
+        ss.inner_sweeps_gather(*gin, 2, 30)
+    # a K3 block that is not a multiple of 32 (unless it is the whole width)
+    blk = [_to_blocks(x, 48) for x in _rows(3, 96, cuda_device)]
+    with pytest.raises(ValueError):
+        ss.inner_sweeps_blockmajor(*blk, 2)
 
 
 def _to_blocks(x, block):

@@ -1,5 +1,6 @@
 """Parity of the port's row solver (mgf_tpu_torch.solver) and of kernel K1's
-plain version (ops/solver_sweep.inner_sweeps_reference) with mgf_tpu's.
+plain versions (ops/solver_sweep.inner_sweeps_reference and, for the gather
+mode, inner_sweeps_gather_reference) with mgf_tpu's.
 
 The port-side twins of tests/test_solver_sweep.py: the same random row
 systems, made with numpy, go through mgf_tpu.solve_rows (pallas_inner
@@ -277,3 +278,104 @@ def test_build_row_constraints_iso_fused_matches_jax():
         else:
             np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5,
                                        err_msg=f)
+
+
+@pytest.mark.parametrize("warm,inner", [(False, 4), (True, 1), (True, 6)])
+def test_inner_sweeps_gather_reference_matches_jax(warm, inner):
+    """K1's gather mode (plain version) against mgf_tpu on one outer
+    iteration: solve_rows' partner term (mgf_tpu/solver.py partner_term)
+    and the Pallas inner_sweeps in interpret mode, through mgf_tpu's
+    solve_rows with iters=1.  The state has statics past N (M > N), some
+    invalid rows point one past the end (partner = M), and the last rows
+    have a static partner (K < R).  With ``warm``, mgf_tpu's solve_rows
+    with iters=0 gives the state and accumulators after its warm pre-apply,
+    which are this iteration's inputs."""
+    rows, body = _random_rows(n=600, R=8, seed=17, m_extra=5)
+    R, n = rows["valid"].shape
+    m = n + 5
+    K = R - 3
+    bad = np.random.default_rng(6).uniform(size=(R, n)) < 0.3
+    rows["valid"] &= ~bad
+    rows["partner"][bad] = m                     # past the (8, M) state
+    (jrc, jb), _ = _both(rows, body)
+    rng = np.random.default_rng(8)
+    w = (tuple(jnp.asarray(rng.uniform(0, 0.3, (R, n)).astype(np.float32))
+               for _ in range(3)) if warm else None)
+    run = lambda iters: jsol.solve_rows(
+        jrc, jb[0], jb[1], jb[2], jb[3], iters, friction_mode="textbook",
+        two_phase=False, inner_iters=inner, warm=w, return_acc=True,
+        n_gather_rows=K, pallas_inner=True)
+    v0, o0, acc0 = run(0)
+    v1, o1, acc1 = run(1)
+    S = np.zeros((8, m), np.float32)
+    S[:3], S[3:6] = _np(v0), _np(o0)
+    trc = _both(rows, body)[1][0]
+    args = (torch.as_tensor(S), tss.pack_row_fields(trc),
+            torch.as_tensor(rows["partner"]),
+            torch.as_tensor(np.ascontiguousarray(rows["rb"][:, :K])),
+            torch.as_tensor(np.stack([body["inv_mass"][:n], body["iso"][:n]])),
+            torch.as_tensor(_np(acc0)))
+    s_t, a_t = tss.inner_sweeps_gather_reference(*args, inner, K)
+    np.testing.assert_allclose(s_t.numpy()[:3], _np(v1), atol=2e-4, rtol=1e-4)
+    np.testing.assert_allclose(s_t.numpy()[3:6], _np(o1), atol=2e-4,
+                               rtol=1e-4)
+    np.testing.assert_array_equal(s_t.numpy()[:, n:], S[:, n:])
+    np.testing.assert_array_equal(s_t.numpy()[6:], 0.0)
+    valid = rows["valid"]
+    np.testing.assert_allclose(a_t.numpy()[:, valid], _np(acc1)[:, valid],
+                               atol=2e-4, rtol=1e-4)
+    # the wrapper on CPU tensors is the plain version, and counts nothing
+    before = tss.LAUNCHES
+    s_w, a_w = tss.inner_sweeps_gather(*args, inner, K)
+    assert torch.equal(s_w, s_t) and torch.equal(a_w, a_t)
+    assert tss.LAUNCHES == before
+    # the solve must actually do something (non-degenerate fixture)
+    assert np.abs(s_t.numpy()[:3] - S[:3]).max() > 1e-3
+
+
+def test_inner_sweeps_gather_checks_inputs():
+    n, R, K, m = 16, 3, 2, 20
+    z = lambda *s: torch.zeros(s, dtype=torch.float32)
+    part = torch.zeros((R, n), dtype=torch.int32)
+    ok = (z(8, m), z(18, R, n), part, z(3, K, n), z(2, n), z(3, R, n))
+    s_out, a_out = tss.inner_sweeps_gather(*ok, 2, K)
+    assert s_out.shape == (8, m) and a_out.shape == (3, R, n)
+    tss.inner_sweeps_gather(z(8, n), *ok[1:3], z(3, 0, n), *ok[4:], 2, 0)
+    with pytest.raises(TypeError):                     # partner int64
+        tss.inner_sweeps_gather(ok[0], ok[1], part.long(), *ok[3:], 2, K)
+    with pytest.raises(ValueError):                    # rb rows != K
+        tss.inner_sweeps_gather(*ok[:3], z(3, K + 1, n), *ok[4:], 2, K)
+    with pytest.raises(ValueError):                    # K > R
+        tss.inner_sweeps_gather(*ok[:3], z(3, R + 1, n), *ok[4:], 2, R + 1)
+    with pytest.raises(ValueError):                    # M < N
+        tss.inner_sweeps_gather(z(8, n - 1), *ok[1:], 2, K)
+    with pytest.raises(ValueError):                    # partner not (R, N)
+        tss.inner_sweeps_gather(ok[0], ok[1], part[:, :8], *ok[3:], 2, K)
+    with pytest.raises(ValueError):                    # non-contiguous
+        tss.inner_sweeps_gather(z(m, 8).T, *ok[1:], 2, K)
+
+
+def test_sweep_kernel_limits():
+    """A CUDA block is 32 columns x R rows: R = 33 is refused on every
+    device, as is a K3 block width that is not a multiple of 32 (unless
+    it is the whole width)."""
+    n = 64
+    z = lambda *s: torch.zeros(s, dtype=torch.float32)
+    for R, ok in ((32, True), (33, False)):
+        args = (z(8, n), z(18, R, n), z(3, R, n), z(2, n), z(3, R, n))
+        gargs = (z(8, n), z(18, R, n), torch.zeros((R, n), dtype=torch.int32),
+                 z(3, 1, n), z(2, n), z(3, R, n))
+        if ok:
+            tss.inner_sweeps(*args, 1)
+            tss.inner_sweeps_gather(*gargs, 1, 1)
+            continue
+        with pytest.raises(ValueError):
+            tss.inner_sweeps(*args, 1)
+        with pytest.raises(ValueError):
+            tss.inner_sweeps_gather(*gargs, 1, 1)
+    blk = lambda nb, b: (z(nb, 8, b), z(nb, 18, 2, b), z(nb, 3, 2, b),
+                         z(nb, 2, b), z(nb, 3, 2, b))
+    tss.inner_sweeps_blockmajor(*blk(2, 64), 1)
+    tss.inner_sweeps_blockmajor(*blk(1, 48), 1)
+    with pytest.raises(ValueError):
+        tss.inner_sweeps_blockmajor(*blk(2, 48), 1)
