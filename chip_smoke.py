@@ -1,6 +1,6 @@
 """Smoke run of mgf_tpu_torch on one NVIDIA GPU: build the kernels, check
-them, drive the flagship path and the generic sphere branch, and check what
-comes out.
+them, drive the flagship path, the generic sphere branch, the mixed
+sphere/capsule pile and the capsules demo, and check what comes out.
 
     python3 chip_smoke.py
 
@@ -16,13 +16,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
    out of range), with both times from CUDA events; tolerance atol 2e-4 /
    rtol 1e-4 on the state and on the accumulators of valid rows; beside
    them the time of the torch launches gather mode replaced in each outer
-   iteration (gather, term, zero rows, stack, the state's cat);
-4. the main path: stress_scene(100_000) stepped 256 steps by
+   iteration (gather, term, zero rows, stack, the state's cat).  Every
+   kernel time in this script is the median of 5 blocks of 20 calls after
+   a warm-up, printed with the fastest and the slowest block; the card
+   spins before each block so that the launches are queued when it starts
+   and the time is the device's, not the host's pace of issuing them;
+4. the main path: stress_scene(100_000) stepped 128 steps by
    AdaptiveChunkStepper(chunk=16, light=True), with the physics guards
    checked and K1's launch count held to the solver's outer iterations
    (one gather-mode launch per outer iteration)
-   (every kernel's count is set to 0 before each path, [4], [7] and [8],
-   and read after it; the kernels line sums them);
+   (every kernel's count is set to 0 before each path, [4], [7], [8],
+   [11] and [13], and read after it; the kernels line sums them);
 5. kernel path against plain path end to end: an 8,000-body pile stepped
    40 steps on the card, copied to the CPU, then one more step on each;
 6. K2 against its plain version at P = 900,000 pairs (the cold pile's 9
@@ -43,7 +47,30 @@ Phases (each prints one line; any failure raises and exits non-zero):
 10. K3 (K1's kernel over the block-major layout) against its plain version
     at R=12, N=100,352, block 512/1024/2048, inner 1 and 8, timed beside
     K1 on the same data;
-11. a JSON line of per-kernel results, then the result line.
+11. the mixed pile at full width: stress_scene(100_000, mixed=True)
+    (75,000 spheres, then 25,000 capsules; the type-partitioned
+    narrowphase, two chained block solves, the hybrid warm match at 24
+    rows) stepped 128 steps by AdaptiveChunkStepper(chunk=16, light=True):
+    finite state, drift excess 0 in every step, contacts, no body below
+    y = -1 or outside the walls, and no launch of K1, K2 or K3 (this path
+    runs no hand-written kernel, as in the JAX package).  Two guards are
+    set at what mgf_tpu's own mixed pile meets over the same 128 steps
+    (test_mixed_reference_meets_smoke_guard in
+    tests/test_torch_world_mixed.py at 2,000 bodies;
+    scripts/mixed_reference_guards.py at 8,000 and 30,000): max penetration
+    < 0.5 at the LAST step (the reference passes 0.5 during the collapse),
+    and a bucket overflow of at most 0.05 % of the bodies in any step (the
+    reference's grid, cell 2.0 and cap 14, drops 1 body of 2,000 and 3 of
+    30,000 on its worst step; it is not 0 there either);
+12. the mixed step on the card against the CPU: an 8,000-body mixed pile
+    after 40 card steps, one more step on each from the same state; equal
+    contact counts per class (sphere-sphere, sphere-capsule,
+    capsule-capsule, terrain), v and omega within 1e-4;
+13. the demo capsules_scene(11) (1,331 capsules, Mat3 inertia, 20
+    two-phase sweeps) stepped 280 steps: finite state, overflow 0,
+    contacts, and the count of capsules at rest inside the box beside the
+    count that missed it and go on falling, as in the reference demo;
+14. a JSON line of per-kernel results, then the result line.
 
 Needs a CUDA card; it exits non-zero without one, and imports no JAX.
 """
@@ -62,6 +89,9 @@ TOL = dict(atol=2e-4, rtol=1e-4)
 N_MAIN = 100_000      # the flagship pile
 N_E2E = 8_000         # the end-to-end kernel-vs-plain pile
 N_K3 = 100_352        # K3's micro-bench width (512 | N)
+# the mixed pile's bucket overflow in any step, as a share of the bodies:
+# mgf_tpu's own worst step at 2,000 bodies (1 body)
+MIXED_OVERFLOW_SHARE = 0.0005
 
 # The least time for a kernel's work: the larger of its bytes (each input
 # read once, each output written once) over the H100 SXM's 3.35 TB/s and
@@ -142,17 +172,45 @@ def _flagship_rows(R, N, dev, seed=0):
             t(rng.uniform(0.0, 0.3, (3, R, N)))), t(valid[0]).bool()
 
 
-def _time_ms(fn, reps=20):
-    for _ in range(3):
-        fn()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
+class Ms(float):
+    """A time in ms: the median over the timed blocks, with the fastest and
+    the slowest block beside it."""
+    lo = hi = 0.0
+
+    def __str__(self):
+        return (f"{float(self):.4f} ms (min {self.lo:.4f}, max "
+                f"{self.hi:.4f})")
+
+
+# the card spins this long before each timed block (~10 ms at 1.98 GHz), so
+# that the host has the block's launches queued before the first one runs
+SPIN_CYCLES = 20_000_000
+
+
+def _time_ms(fn, reps=20, blocks=5):
+    """Median per-call DEVICE time over ``blocks`` blocks of ``reps`` calls,
+    each block between two CUDA events, after a warm-up block.  A wrapper
+    whose kernel takes less than the host needs to issue it (K2: ~30 us of
+    kernel behind two allocations, a ctypes call and a dozen views) would
+    otherwise be timed at the host's pace, which moves 2x with the load on
+    a shared host: the device first spins, the launches queue up behind it,
+    and the events see them run back to back."""
     for _ in range(reps):
         fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    times = []
+    for _ in range(blocks):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / reps)
+    ms = Ms(float(np.median(times)))
+    ms.lo, ms.hi = min(times), max(times)
+    return ms
 
 
 def _flagship_partners(valid, K, dev, seed=0):
@@ -216,11 +274,11 @@ def phase_kernel(ss, dev):
                                       bound_by=b_by)
             print(f"[3] K1 {mode} mode R={R} N={N} inner={inner}: "
                   f"max_abs_err state {err_s:.3g} acc {err_a:.3g} (atol "
-                  f"2e-4, rtol 1e-4); kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+                  f"2e-4, rtol 1e-4); kernel {ms}, plain "
+                  f"{plain_ms}, bound {b_ms:.4f} ms ({b_by})",
                   flush=True)
     print(f"[3] the torch launches gather mode replaced, per outer "
-          f"iteration (K={K}): {glue_ms:.4f} ms", flush=True)
+          f"iteration (K={K}): {glue_ms}", flush=True)
     return out
 
 
@@ -228,7 +286,7 @@ def phase_main_path(ss, nph, dev):
     from mgf_tpu_torch.driver import AdaptiveChunkStepper
     from mgf_tpu_torch.scenes import stress_scene
     world, cfg = stress_scene(N_MAIN, device=dev)
-    chunk, n_chunks = 16, 16
+    chunk, n_chunks = 16, 8
     st = AdaptiveChunkStepper(cfg, chunk=chunk, light=True)
     it2 = int(cfg.adapt_schedule[1])
     expected = 0
@@ -341,8 +399,8 @@ def phase_k2(nph, dev, P=9 * N_MAIN):
     b_ms, b_by = bound(4 * (7 + 7 + 8 + 3) * P, K2_OPS_PER_PAIR * P)
     print(f"[6] K2 P={P}: valid equal ({int(v.sum())} valid), max_abs_err "
           f"t/n {err_tn:.3g} (atol 1e-4) points {err_p:.3g} (atol 1e-3); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by})", flush=True)
+          f"kernel {ms}, plain {plain_ms}, bound {b_ms:.4f} ms ({b_by})",
+          flush=True)
     return dict(err=max(err_tn, err_p), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by)
 
@@ -503,10 +561,132 @@ def phase_k3(ss, dev):
                                        bound_ms=b_ms, bound_by=b_by)
             print(f"[10] K3 R=12 N={N_K3} block={block} inner={inner}: "
                   f"max_abs_err {err:.3g} (atol 2e-4, rtol 1e-4); kernel "
-                  f"{ms:.4f} ms, K1 same data {k1[inner]:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+                  f"{ms}, K1 same data {k1[inner]}, plain "
+                  f"{plain_ms}, bound {b_ms:.4f} ms ({b_by})",
                   flush=True)
     return out
+
+
+def _escaped(world):
+    """Bodies below y = -1 or outside the scene's walls (the terrain's x/z
+    extent)."""
+    b, t = world.bodies, world.terrain
+    wall = max(float(c.abs().max()) for v in t for c in (v.x, v.z))
+    out = (b.x.y < -1.0) | (b.x.x.abs() > wall) | (b.x.z.abs() > wall)
+    return int(out.sum())
+
+
+def phase_mixed_path(ss, nph, dev):
+    from mgf_tpu_torch.driver import AdaptiveChunkStepper
+    from mgf_tpu_torch.scenes import stress_scene
+    world, cfg = stress_scene(N_MAIN, mixed=True, device=dev)
+    n_caps = int(world.bodies.shape_type.sum())
+    n_sph = world.bodies.n_bodies - n_caps
+    chunk, n_chunks = 16, 8
+    st = AdaptiveChunkStepper(cfg, chunk=chunk, light=True)
+    _zero_counts(ss, nph)
+    world, chunk_s, rebuilds, overflow, drift, last = _run_chunks(
+        lambda w, _ones: st.step_chunk(w), world, n_chunks, chunk)
+    counts = _counts(ss, nph)
+    overflow = max(overflow)
+    steps = chunk * n_chunks
+    sps_late = chunk * (n_chunks - 2) / sum(chunk_s[2:])
+    contacts = int(last["num_contacts"])
+    pen = float(last["max_penetration"])
+    hit = float(last["warm_hit_frac"])
+    escaped = _escaped(world)
+    print(f"[11] mixed path stress_scene({N_MAIN}, mixed=True) ({n_sph} "
+          f"spheres, {n_caps} capsules) {steps} steps, chunk {chunk}: "
+          f"{sps_late:.2f} steps/s (steps 33-{steps}; "
+          f"{steps / sum(chunk_s):.2f} incl. the first two chunks), contacts "
+          f"{contacts}, max penetration {pen:.4f}, rebuilds {rebuilds}, "
+          f"warm_hit_frac {hit:.4f}, overflow worst step {overflow} (limit "
+          f"{MIXED_OVERFLOW_SHARE * N_MAIN:.0f}), drift excess "
+          f"{drift}, escaped bodies {escaped}, hot schedule {st.hot_on}, "
+          f"kernel launches {counts}", flush=True)
+    check(n_sph == cfg.n_sphere_rows == 75_000 and n_caps == 25_000,
+          f"mixed pile: {n_sph} spheres, {n_caps} capsules")
+    check(_finite(world), "mixed pile: non-finite x, v or omega")
+    check(overflow <= MIXED_OVERFLOW_SHARE * N_MAIN,
+          f"mixed pile: broadphase overflow {overflow} in one step")
+    check(drift == 0.0, f"mixed pile: broadphase drift excess {drift}")
+    check(contacts > 0, "mixed pile: no contacts")
+    check(escaped == 0, f"mixed pile: {escaped} bodies escaped")
+    check(pen < 0.5, f"mixed pile: max penetration {pen}")
+    check(not any(counts.values()),
+          f"mixed pile launched a hand-written kernel: {counts}")
+    return counts
+
+
+def _class_counts(m, ns):
+    """Valid contacts of a step by class, over both slots."""
+    pc, tc = m["pair_contacts"], m["terrain_contacts"]
+    v = pc["contact"].valid
+    a_cap, b_cap = (pc["i"] >= ns)[None], (pc["j"] >= ns)[None]
+    return {"sphere-sphere": int((v & ~a_cap & ~b_cap).sum()),
+            "sphere-capsule": int((v & (a_cap ^ b_cap)).sum()),
+            "capsule-capsule": int((v & a_cap & b_cap).sum()),
+            "terrain": int(tc["contact"].valid.sum())}
+
+
+def phase_mixed_card_vs_cpu(dev):
+    from mgf_tpu_torch import world_from_numpy, world_to_numpy
+    from mgf_tpu_torch.scenes import stress_scene
+    from mgf_tpu_torch.world import step
+    world, cfg = stress_scene(N_E2E, mixed=True, device=dev)
+    one = cfg._replace(adapt_schedule=None)
+    for _ in range(40):
+        world, _ = step(world, one)
+    w_cpu = world_from_numpy(world_to_numpy(world), "cpu")
+    w_g, m_g = step(world, one, collect_contacts=True)
+    w_c, m_c = step(w_cpu, one, collect_contacts=True)
+    c_g = _class_counts(m_g, cfg.n_sphere_rows)
+    c_c = _class_counts(m_c, cfg.n_sphere_rows)
+    err = {f: max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(getattr(w_g.bodies, f),
+                                  getattr(w_c.bodies, f)))
+           for f in ("v", "omega")}
+    print(f"[12] {N_E2E}-body mixed pile after 40 card steps, one more step: "
+          f"contacts by class card {c_g} / cpu {c_c}; max |dv| "
+          f"{err['v']:.3g}, max |domega| {err['omega']:.3g} (atol 1e-4)",
+          flush=True)
+    check(c_g == c_c, f"mixed contact counts {c_g} vs {c_c}")
+    check(all(n > 0 for n in c_c.values()), f"a contact class is empty: {c_c}")
+    check(max(err.values()) <= 1e-4, f"mixed v/omega differ by {err}")
+
+
+def phase_capsules_demo(ss, nph, dev):
+    from mgf_tpu_torch.driver import make_chunk_step
+    from mgf_tpu_torch.scenes import capsules_scene
+    world, cfg = capsules_scene(11, device=dev)
+    chunk, n_chunks = 20, 14
+    _zero_counts(ss, nph)
+    world, chunk_s, _, overflow, _, last = _run_chunks(
+        make_chunk_step(cfg, light=True), world, n_chunks, chunk)
+    counts = _counts(ss, nph)
+    steps = chunk * n_chunks
+    b = world.bodies
+    inside = ((b.x.x.abs() < 10.0) & (b.x.z.abs() < 10.0) & (b.x.y > -10.0))
+    speed = torch.sqrt(b.v.x ** 2 + b.v.y ** 2 + b.v.z ** 2)
+    resting = int((inside & (speed < 1.0)).sum())
+    falling = int((~inside).sum())
+    contacts = int(last["num_contacts"])
+    print(f"[13] demo capsules_scene(11) ({b.n_bodies} capsules) {steps} "
+          f"steps: {steps / sum(chunk_s):.2f} steps/s, contacts {contacts}, "
+          f"max penetration {float(last['max_penetration']):.4f}, overflow "
+          f"worst step {max(overflow)}, inside the box {int(inside.sum())} "
+          f"({resting} slower than 1 m/s), missed the box and falling "
+          f"{falling} (lowest y {float(b.x.y.min()):.1f}), kernel launches "
+          f"{counts}", flush=True)
+    check(_finite(world), "capsules demo: non-finite x, v or omega")
+    check(max(overflow) == 0, f"capsules demo: overflow {max(overflow)}")
+    check(contacts > 0, "capsules demo: no contacts")
+    check(int(inside.sum()) > 0 and falling > int(inside.sum()),
+          f"capsules demo: {int(inside.sum())} inside, {falling} falling "
+          f"(most capsules miss the +-10 box)")
+    check(not any(counts.values()),
+          f"capsules demo launched a hand-written kernel: {counts}")
+    return counts
 
 
 def main():
@@ -538,9 +718,12 @@ def main():
     paths.append(phase_cold_path(ss, nph, dev))
     demo, demo_cfg, demo_counts = phase_demo(ss, nph, dev)
     paths.append(demo_counts)
-    launches = {k: sum(p[k] for p in paths) for k in paths[0]}
     phase_demo_card_vs_cpu(demo, demo_cfg)
     k3 = phase_k3(ss, dev)
+    paths.append(phase_mixed_path(ss, nph, dev))
+    phase_mixed_card_vs_cpu(dev)
+    paths.append(phase_capsules_demo(ss, nph, dev))
+    launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
     def row(name, source, replaces, n, r):
         return {"name": name, "route": "cuda", "source": source,
@@ -550,8 +733,8 @@ def main():
                 "bound_by": r["bound_by"], "library_ms": None}
 
     # no single PyTorch call computes K1, K2 or K3: library_ms is null.
-    # launches: each kernel's count summed over the three paths ([4], [7],
-    # [8]).  K1 in gather mode at the main path's settled shape (inner 6);
+    # launches: each kernel's count summed over the paths ([4], [7], [8];
+    # [11] and [13] launch none).  K1 in gather mode at the main path's settled shape (inner 6);
     # K2 at the cold pile's 900,000 pairs; K3 at block 1024, inner 8
     print(json.dumps({"kernels": [
         row("solver_sweep.inner_sweeps",

@@ -46,6 +46,10 @@ def safe_sqrt(x):
     return torch.sqrt(torch.clamp(x, min=0.0))
 
 
+def clamp(n, lo, hi):
+    return torch.clamp(n, lo, hi)
+
+
 # ---------------------------------------------------------------------------
 # Vec3
 # ---------------------------------------------------------------------------
@@ -105,8 +109,12 @@ def magnitude2(v: Vec3):
     return dot(v, v)
 
 
+def magnitude(v: Vec3):
+    return torch.sqrt(magnitude2(v))
+
+
 def normalize(v: Vec3) -> Vec3:
-    return v * (1.0 / torch.sqrt(magnitude2(v)))
+    return v * (1.0 / magnitude(v))
 
 
 def safe_normalize(v: Vec3) -> Vec3:
@@ -129,6 +137,10 @@ def vmin(a: Vec3, b: Vec3) -> Vec3:
 def vmax(a: Vec3, b: Vec3) -> Vec3:
     return Vec3(torch.maximum(a.x, b.x), torch.maximum(a.y, b.y),
                 torch.maximum(a.z, b.z))
+
+
+def vabs(v: Vec3) -> Vec3:
+    return Vec3(torch.abs(v.x), torch.abs(v.y), torch.abs(v.z))
 
 
 def perpendicular(v: Vec3) -> Vec3:
@@ -187,6 +199,26 @@ def qnormalize(q: Quat) -> Quat:
                 torch.where(ok, out.y, 0.0), torch.where(ok, out.z, 0.0))
 
 
+def qrotate(q: Quat, v: Vec3) -> Vec3:
+    """Rotate v by unit quaternion q: v + 2 u x (u x v + w v)."""
+    u = q.v
+    t = cross(u, v) * 2.0
+    return v + t * q.w + cross(u, t)
+
+
+def quat_from_arc(src: Vec3, dst: Vec3) -> Quat:
+    """Shortest-arc rotation src -> dst; cgmath ``from_arc(src, dst, None)``
+    semantics (non-unit inputs ok, antiparallel spins pi around an arbitrary
+    perpendicular axis).  Used for capsule frames (physics.rs:70,
+    compound.rs:48)."""
+    mag_avg = safe_sqrt(magnitude2(src) * magnitude2(dst))
+    d = dot(src, dst)
+    general = qnormalize(quat_from_sv(mag_avg + d, cross(src, dst)))
+    anti = quat_from_sv(torch.zeros_like(d), perpendicular(src))
+    is_anti = d < -mag_avg * (1.0 - 1e-6)
+    return Quat(*(torch.where(is_anti, a, g) for a, g in zip(anti, general)))
+
+
 # ---------------------------------------------------------------------------
 # Mat3 — row-major 3x3 as nine component tensors
 # ---------------------------------------------------------------------------
@@ -233,3 +265,62 @@ def outer(a: Vec3, b: Vec3) -> Mat3:
     return Mat3(a.x * b.x, a.x * b.y, a.x * b.z,
                 a.y * b.x, a.y * b.y, a.y * b.z,
                 a.z * b.x, a.z * b.y, a.z * b.z)
+
+
+def mat3_rows(r0: Vec3, r1: Vec3, r2: Vec3) -> Mat3:
+    return Mat3(r0.x, r0.y, r0.z, r1.x, r1.y, r1.z, r2.x, r2.y, r2.z)
+
+
+def mat_mul(a: Mat3, b: Mat3) -> Mat3:
+    return Mat3(
+        a.xx * b.xx + a.xy * b.yx + a.xz * b.zx,
+        a.xx * b.xy + a.xy * b.yy + a.xz * b.zy,
+        a.xx * b.xz + a.xy * b.yz + a.xz * b.zz,
+        a.yx * b.xx + a.yy * b.yx + a.yz * b.zx,
+        a.yx * b.xy + a.yy * b.yy + a.yz * b.zy,
+        a.yx * b.xz + a.yy * b.yz + a.yz * b.zz,
+        a.zx * b.xx + a.zy * b.yx + a.zz * b.zx,
+        a.zx * b.xy + a.zy * b.yy + a.zz * b.zy,
+        a.zx * b.xz + a.zy * b.yz + a.zz * b.zz,
+    )
+
+
+def mat_t(m: Mat3) -> Mat3:
+    return Mat3(m.xx, m.yx, m.zx, m.xy, m.yy, m.zy, m.xz, m.yz, m.zz)
+
+
+def mat_diag(x, y, z) -> Mat3:
+    zero = torch.zeros_like(x)
+    return Mat3(x, zero, zero, zero, y, zero, zero, zero, z)
+
+
+def mat_inv3(m: Mat3) -> Mat3:
+    """Closed-form inverse (adjugate/det); zero matrix for singular lanes."""
+    c00 = m.yy * m.zz - m.yz * m.zy
+    c01 = m.yz * m.zx - m.yx * m.zz
+    c02 = m.yx * m.zy - m.yy * m.zx
+    det = m.xx * c00 + m.xy * c01 + m.xz * c02
+    inv_det = safe_div(torch.ones_like(det), det)
+    return Mat3(
+        c00 * inv_det,
+        (m.xz * m.zy - m.xy * m.zz) * inv_det,
+        (m.xy * m.yz - m.xz * m.yy) * inv_det,
+        c01 * inv_det,
+        (m.xx * m.zz - m.xz * m.zx) * inv_det,
+        (m.xz * m.yx - m.xx * m.yz) * inv_det,
+        c02 * inv_det,
+        (m.xy * m.zx - m.xx * m.zy) * inv_det,
+        (m.xx * m.yy - m.xy * m.yx) * inv_det,
+    )
+
+
+def quat_to_mat(q: Quat) -> Mat3:
+    w, x, y, z = q.w, q.x, q.y, q.z
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return Mat3(
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    )

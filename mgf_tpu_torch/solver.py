@@ -1,4 +1,5 @@
-"""Row-structured contact solver, isotropic (sphere) path.
+"""Row-structured contact solver: the isotropic (sphere) path and the
+general Mat3-inertia path of capsules.
 
 Counterpart of the row solver of ``mgf_tpu.solver`` (reference: solver.rs
 impulse math, warm-started sequential impulses with Baumgarte
@@ -8,15 +9,16 @@ triangles); each pair appears twice, once per body, mirrored; a solver
 iteration is one gather of the packed (8, N) body state by the (R, N)
 partner matrix, elementwise impulse math and a sum over the R axis.
 
-The slice covers ``solve_rows`` with scalar (isotropic) inertia and
-textbook friction, single- and two-phase, with warm starting,
-``partner_term0``, ``n_gather_rows`` and the fused gather + inner-sweep
-kernel (``pallas_inner``, kept under the JAX package's name: here it
-selects the CUDA kernel of ``ops/solver_sweep.py``); and both iso
-constraint builds:
-:func:`build_row_constraints_iso` (one 16-wide partner gather, the generic
-branch) and :func:`build_row_constraints_iso_fused` (gather-free, the
-flagship).
+``solve_rows`` runs textbook friction, single- and two-phase, with scalar
+(isotropic) or Mat3 inverse inertia, warm starting, ``partner_term0``,
+``n_gather_rows``, block solves over a column range (``col_offset``,
+``state0``, ``return_state``) and the fused gather + inner-sweep kernel
+(``pallas_inner``, kept under the JAX package's name: here it selects the
+CUDA kernel of ``ops/solver_sweep.py``; scalar inertia, no column offset).
+The constraint builds: :func:`build_row_constraints` (Mat3 inertia, three
+8-wide partner gathers), :func:`build_row_constraints_iso` (one 16-wide
+partner gather, the generic sphere branch) and
+:func:`build_row_constraints_iso_fused` (gather-free, the flagship).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from mgf_tpu_torch.manifold import Manifold
 from mgf_tpu_torch.math3d import (
-    Mat3, Vec3, cross, dot, magnitude2, safe_div,
+    Mat3, Vec3, cross, dot, magnitude2, mat_vec, safe_div, tree_map,
 )
 from mgf_tpu_torch.ops import solver_sweep as _ss
 
@@ -86,6 +88,102 @@ class PartnerFields(NamedTuple):
     inv_mass: torch.Tensor
     count: torch.Tensor    # mass-splitting contact count (clamped >= 1)
     iso: torch.Tensor      # isotropic world inverse inertia scalar
+
+
+def pack_solver_bodies(bodies: BodyView, counts=None):
+    """The per-body quantities the constraint precompute reads as three
+    (M, 8) tables, so the (R, N)-indexed reads are 3 wide gathers:
+
+    A: x.xyz  v.xyz  restitution friction
+    B: omega.xyz  inv_mass  count  _ _ _
+    C: inverse inertia (symmetric): Ixx Ixy Ixz Iyy Iyz Izz _ _
+    """
+    z = torch.zeros_like(bodies.inv_mass)
+    cnt = counts if counts is not None else torch.ones_like(bodies.inv_mass)
+    A = torch.stack([bodies.x.x, bodies.x.y, bodies.x.z,
+                     bodies.v.x, bodies.v.y, bodies.v.z,
+                     bodies.restitution, bodies.friction], dim=-1)
+    B = torch.stack([bodies.omega.x, bodies.omega.y, bodies.omega.z,
+                     bodies.inv_mass, cnt, z, z, z], dim=-1)
+    I = bodies.inv_moment
+    C = torch.stack([I.xx, I.xy, I.xz, I.yy, I.yz, I.zz, z, z], dim=-1)
+    return A, B, C
+
+
+def _unpack_solver_rows(A, B, C, idx):
+    idx = idx.long()
+    a = A[idx]
+    b = B[idx]
+    c = C[idx]
+    x = Vec3(a[..., 0], a[..., 1], a[..., 2])
+    v = Vec3(a[..., 3], a[..., 4], a[..., 5])
+    restitution = a[..., 6]
+    friction = a[..., 7]
+    omega = Vec3(b[..., 0], b[..., 1], b[..., 2])
+    inv_mass = b[..., 3]
+    count = b[..., 4]
+    I = Mat3(c[..., 0], c[..., 1], c[..., 2],
+             c[..., 1], c[..., 3], c[..., 4],
+             c[..., 2], c[..., 4], c[..., 5])
+    return x, v, omega, restitution, friction, inv_mass, count, I
+
+
+def build_row_constraints(bodies: BodyView, partner, manifold: Manifold,
+                          dt, counts=None, col_offset: int = 0,
+                          bias_max: float = -1.0) -> RowConstraints:
+    """Per-slot state for the row solver with Mat3 inertia.
+
+    ``partner`` is (R, N) int32 into the M rows of ``bodies`` (the static
+    terrain row last); ``manifold`` fields are shaped (R, N).  ``counts``
+    (M,) enables mass splitting.  The N columns are bodies ``col_offset ..
+    col_offset + N``; the self side is read with slices, not gathers."""
+    n = partner.shape[1]
+    lo, hi = col_offset, col_offset + n
+    A, B, C = pack_solver_bodies(bodies, counts)
+
+    sl = lambda t: tree_map(lambda g: g[lo:hi][None, :], t)
+    xa = sl(bodies.x)
+    va, oa = sl(bodies.v), sl(bodies.omega)
+    ima = bodies.inv_mass[lo:hi][None, :]
+    Ia = sl(bodies.inv_moment)
+    ra_ = bodies.restitution[lo:hi][None, :]
+    fa = bodies.friction[lo:hi][None, :]
+
+    (xb, vb, ob, rb_, fb, imb, sb, Ib) = _unpack_solver_rows(A, B, C,
+                                                             partner)
+
+    restitution = torch.maximum(ra_, rb_)
+    friction = torch.sqrt(fa * fb)
+
+    if counts is not None:
+        sa = counts[lo:hi][None, :]
+        ima = ima * sa
+        imb = imb * sb
+        Ia = Ia * sa
+        Ib = Ib * sb
+
+    ra = manifold.local_a
+    rb = manifold.local_b
+    nrm = manifold.normal
+    t1, t2 = manifold.t1, manifold.t2
+
+    pen = dot((rb + xb) - (ra + xa), nrm)
+    dv = vb + cross(ob, rb) - va - cross(oa, ra)
+    rel_v = dot(dv, nrm)
+    bias = contact_bias(pen, rel_v, restitution, dt, bias_max)
+
+    def eff_mass(axis):
+        ra_c = cross(ra, axis)
+        rb_c = cross(rb, axis)
+        return safe_div(
+            1.0, ima + dot(ra_c, mat_vec(Ia, ra_c))
+            + imb + dot(rb_c, mat_vec(Ib, rb_c)))
+
+    return RowConstraints(
+        partner=partner, ra=ra, rb=rb, normal=nrm, t1=t1, t2=t2,
+        friction=friction, bias=bias, normal_mass=eff_mass(nrm),
+        tangent_mass1=eff_mass(t1), tangent_mass2=eff_mass(t2),
+        valid=manifold.valid)
 
 
 def pack_solver_bodies_iso(bodies: BodyView, counts, iso_inv_moment):
@@ -265,12 +363,18 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
                inv_moment, iters: int, friction_mode: str = "textbook",
                two_phase: bool = True, inner_iters: int = 1, warm=None,
                return_acc: bool = False, partner_term0: Vec3 = None,
-               n_gather_rows: int = None, pallas_inner: bool = False):
+               n_gather_rows: int = None, pallas_inner: bool = False,
+               col_offset: int = 0, state0=None, return_state: bool = False):
     """Scatter-free row sweeps.  ``v``/``omega``/``inv_mass`` cover M >= N
-    rows (N = ``rc.partner.shape[1]``); bodies ``[0, N)`` are updated and
-    rows past N (statics) are returned unchanged.
+    rows (N = ``rc.partner.shape[1]``); only bodies ``[col_offset,
+    col_offset + N)`` are updated, every other row (statics included) is
+    returned unchanged.  A block's partner gathers read the GLOBAL state,
+    so block solves chained through ``state0`` compose as a two-colour
+    Gauss-Seidel.
 
-    ``inv_moment`` is the (M,) isotropic scalar inverse inertia.
+    ``inv_moment`` is the (M,) isotropic scalar inverse inertia, or a Mat3
+    of (M,) components.  ``state0``/``return_state`` pass and return the
+    packed (8, M) state, so chained block solves skip a pack and unpack.
     ``inner_iters`` > 1 runs block-Jacobi inner sweeps with partner
     velocities frozen between gathers (``iters`` gathers, ``iters *
     inner_iters`` sweeps).  ``warm`` is an optional (acc_n, acc_t1, acc_t2)
@@ -284,38 +388,54 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
     sweeps, as one call of
     :func:`mgf_tpu_torch.ops.solver_sweep.inner_sweeps_gather` (of
     ``inner_sweeps`` where ``partner_term0`` gives the term): the CUDA
-    kernel on a card, R <= 32 rows, single-phase textbook friction only.
+    kernel on a card, R <= 32 rows, single-phase textbook friction, scalar
+    inertia and no column offset only.
 
-    Returns (v, omega) for all M rows, plus the (R, N) accumulator triple
-    with ``return_acc``.
+    Returns (v, omega) for all M rows, or the packed state with
+    ``return_state``; plus the (R, N) accumulator triple with
+    ``return_acc``.
     """
-    if friction_mode != "textbook" or isinstance(inv_moment, Mat3):
+    if friction_mode != "textbook":
         raise NotImplementedError(
-            "solve_rows with friction_mode='mgf' or Mat3 inertia arrives "
-            "with the reference-solver and capsule slices (ROADMAP 9-10)")
+            "solve_rows with friction_mode='mgf' arrives with the "
+            "reference-solver slice (ROADMAP slice 10)")
     n = rc.partner.shape[1]
-    S = pack_body_state(v, omega)
+    lo, hi = col_offset, col_offset + n
+    S = pack_body_state(v, omega) if state0 is None else state0
     M = S.shape[1]
-    ima = inv_mass[:n]
-    ia_s = inv_moment[:n]
+    ima = inv_mass[lo:hi]
+    mat3 = isinstance(inv_moment, Mat3)
+    if mat3:
+        Ia = tree_map(lambda g: g[lo:hi], inv_moment)
+        apply_I = lambda vec: mat_vec(Ia, vec)
+    else:
+        ia_s = inv_moment[lo:hi]
+        apply_I = lambda vec: vec * ia_s
     R_tot = rc.partner.shape[0]
     K = R_tot if n_gather_rows is None else min(n_gather_rows, R_tot)
     rb_k = Vec3(*(c[:K] for c in rc.rb))
 
     def self_term(S):
-        va = Vec3(S[0, :n][None], S[1, :n][None], S[2, :n][None])
-        oa = Vec3(S[3, :n][None], S[4, :n][None], S[5, :n][None])
+        va = Vec3(S[0, lo:hi][None], S[1, lo:hi][None], S[2, lo:hi][None])
+        oa = Vec3(S[3, lo:hi][None], S[4, lo:hi][None], S[5, lo:hi][None])
         return va + cross(oa, rc.ra)
 
     def apply_self(S, imp: Vec3):
-        """Row bodies receive -impulse (self is side a)."""
+        """Row bodies receive -impulse (self is side a).  The update is
+        out of place: the columns before, of and after the block."""
         imp = imp * rc.valid
         lin = Vec3(-imp.x.sum(0), -imp.y.sum(0), -imp.z.sum(0)) * ima
         ang_pt = -cross(rc.ra, imp)
-        ang = Vec3(ang_pt.x.sum(0), ang_pt.y.sum(0), ang_pt.z.sum(0)) * ia_s
+        ang = apply_I(Vec3(ang_pt.x.sum(0), ang_pt.y.sum(0),
+                           ang_pt.z.sum(0)))
         upd = torch.stack([lin.x, lin.y, lin.z, ang.x, ang.y, ang.z], dim=0)
-        return torch.cat([
-            torch.cat([S[:6, :n] + upd, S[:6, n:]], dim=1), S[6:]], dim=0)
+        cols = [S[:6, lo:hi] + upd]
+        if lo:
+            cols.insert(0, S[:6, :lo])
+        if hi < M:
+            cols.append(S[:6, hi:])
+        top = torch.cat(cols, dim=1) if len(cols) > 1 else cols[0]
+        return torch.cat([top, S[6:]], dim=0)
 
     zero = torch.zeros(rc.valid.shape, dtype=torch.float32,
                        device=S.device)
@@ -327,9 +447,10 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
         acc0 = (wn, wt1, wt2)
 
     if pallas_inner:
-        if two_phase:
+        if two_phase or mat3 or col_offset:
             raise ValueError("pallas_inner requires the single-phase "
-                             "textbook-friction iso (scalar inertia) path")
+                             "textbook-friction iso (scalar inertia) path "
+                             "without a column offset")
         # one kernel launch per outer iteration: the partner gather runs
         # inside it (gather mode), except where partner_term0 is given
         fields = _ss.pack_row_fields(rc)
@@ -347,10 +468,11 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
             else:
                 S, acc = _ss.inner_sweeps_gather(S, fields, partner, rb,
                                                  self_p, acc, inner_iters, K)
+        acc3 = (acc[0], acc[1], acc[2])
+        if return_state:
+            return (S, acc3) if return_acc else S
         out = unpack_body_state(S)
-        if return_acc:
-            return out + ((acc[0], acc[1], acc[2]),)
-        return out
+        return out + (acc3,) if return_acc else out
 
     # the plain inner scan of the JAX package, as is
     gather_idx = _ss.partner_index(rc.partner, K, M)
@@ -374,6 +496,8 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
             else:
                 fn, acc_n = _normal_impulse(rc, dv, acc_n)
                 S = apply_self(S, rc.t1 * f1 + rc.t2 * f2 + rc.normal * fn)
+    if return_state:
+        return (S, (acc_n, acc_t1, acc_t2)) if return_acc else S
     v_out, o_out = unpack_body_state(S)
     if return_acc:
         return v_out, o_out, (acc_n, acc_t1, acc_t2)

@@ -1,5 +1,5 @@
-"""The end-to-end physics step for spheres: the flagship ``fused_iso``
-branch and the generic branch.
+"""The end-to-end physics step for spheres, capsules and mixed piles: the
+flagship ``fused_iso`` branch and the generic branch.
 
 Counterpart of ``mgf_tpu.world`` (reference: ``mgf_demo/world.rs:227-294``,
 ``World::step``):
@@ -19,7 +19,22 @@ Counterpart of ``mgf_tpu.world`` (reference: ``mgf_demo/world.rs:227-294``,
   body arrays extended by one static terrain row; a cold solve (two-phase
   with 20 sweeps in the reference schedule).
 
-Both branches keep every pair and terrain batch 2-D and slot-major,
+* **capsules and mixed** (``shape_mode`` "capsules" / "mixed", always on
+  the generic branch): two contact slots per pair and per (body, triangle),
+  Mat3 inertia, the capsule flank manifold "mid" or "ends".  With
+  ``n_sphere_rows >= 0`` and a culled terrain the mixed step is
+  TYPE-PARTITIONED: bodies are type-sorted (spheres in columns [0, ns),
+  capsules in [ns, N)), each column block evaluates two contact types
+  instead of four, the four-stage triangle x capsule routine runs on the
+  capsule block only, and the solve is two chained block solves (spheres
+  with scalar inertia over their live rows, then capsules with Mat3), a
+  two-colour Gauss-Seidel.  No hand-written kernel runs on these paths, as
+  none does in the JAX package.
+* **warm starting on the generic branch**: the positional, search and
+  hybrid row matches, ``warm_gamma`` and the adaptive schedule, as on the
+  fused branch.
+
+All branches keep every pair and terrain batch 2-D and slot-major,
 (width, N), so the self side of a batch is a broadcast of the body
 columns.  The JAX generic branch flattens the same batches to
 (width * N,), which is the row-major reshape of the port's;
@@ -27,7 +42,7 @@ columns.  The JAX generic branch flattens the same batches to
 
 :class:`WorldConfig` keeps every field name and default of the JAX
 package's, so a config moves between the two unchanged.  Configurations
-off these two branches raise ``NotImplementedError`` naming the ROADMAP
+the port does not run yet raise ``NotImplementedError`` naming the ROADMAP
 slice that brings them.
 
 The JAX step is one jitted graph with ``lax.cond`` switches.  Here the two
@@ -46,23 +61,29 @@ import numpy as np
 import torch
 
 from mgf_tpu_torch import broadphase
-from mgf_tpu_torch.bounds import sphere_aabb
+from mgf_tpu_torch.bounds import capsule_aabb, sphere_aabb
 from mgf_tpu_torch.broadphase import GridConfig
 from mgf_tpu_torch.collision import (
-    Contact, LocalContact, contact_moving_moving, contact_neg,
-    contact_sphere_moving_sphere, contact_stack,
-    contact_triangle_moving_sphere,
+    Contact, LocalContact, contact_capsule_moving_capsule,
+    contact_capsule_moving_sphere, contact_moving_moving, contact_neg,
+    contact_select, contact_sphere_moving_capsule,
+    contact_sphere_moving_sphere, contact_stack_bcast,
+    contact_triangle_moving_capsule, contact_triangle_moving_sphere,
 )
-from mgf_tpu_torch.geom import Sphere, Triangle
+from mgf_tpu_torch.geom import AABB, Capsule, Sphere, Triangle
 from mgf_tpu_torch.manifold import PERSISTENT_THRESHOLD_SQ, Manifold, prune
-from mgf_tpu_torch.math3d import Quat, Vec3, dot, magnitude2, tree_map
+from mgf_tpu_torch.math3d import (
+    Quat, Vec3, dot, magnitude2, qrotate, tree_map, where_vec,
+)
 from mgf_tpu_torch.ops.narrowphase import sphere_contact_pairs
 from mgf_tpu_torch.physics import (
-    RigidBodyState, colliders, complete_motion, integrate,
+    SHAPE_CAPSULE, SHAPE_SPHERE, RigidBodyState, colliders, complete_motion,
+    integrate,
 )
 from mgf_tpu_torch.solver import (
-    BodyView, PartnerFields, build_row_constraints_iso,
-    build_row_constraints_iso_fused, solve_rows,
+    BodyView, PartnerFields, build_row_constraints,
+    build_row_constraints_iso, build_row_constraints_iso_fused, solve_rows,
+    unpack_body_state,
 )
 
 CUDA = torch.device("cuda")
@@ -247,43 +268,74 @@ def shape_view(state: RigidBodyState) -> ShapeView:
 
 
 class PackedShapes(NamedTuple):
-    """Per-body shape data packed for one wide row gather (the sphere half
-    of the JAX package's ``PackedShapes``, whose quaternion and shape-type
-    columns serve capsules)."""
-    p8: torch.Tensor          # (N, 8): x y z dx dy dz r half_h
+    """Per-body shape data packed for one wide row gather.  ``p8`` has 8
+    columns for spheres and 13 in capsule/mixed modes: the quaternion and
+    the shape type ride the same row, so the capsule frame costs no second
+    gather."""
+    p8: torch.Tensor          # (N, 8|13): x y z dx dy dz r half_h
+                              #            [q wxyz, shape type]
+    shape_type: torch.Tensor  # (N,)
 
 
 class GatheredShapes(NamedTuple):
-    """One side of a pair batch (spheres only here)."""
+    """One side of a pair batch."""
     x: Vec3
     delta: Vec3
     sphere: Sphere
-    capsule: object = None
+    capsule: Capsule = None
     shape_type: torch.Tensor = None
 
 
-def pack_shapes(sv: ShapeView) -> PackedShapes:
-    return PackedShapes(p8=torch.stack(
-        [sv.x.x, sv.x.y, sv.x.z, sv.delta.x, sv.delta.y, sv.delta.z,
-         sv.shape_r, sv.shape_half_h], dim=-1))
+def pack_shapes(sv: ShapeView, shape_mode: str = "spheres") -> PackedShapes:
+    cols = [sv.x.x, sv.x.y, sv.x.z, sv.delta.x, sv.delta.y, sv.delta.z,
+            sv.shape_r, sv.shape_half_h]
+    if shape_mode != "spheres":
+        cols += [sv.q.w, sv.q.x, sv.q.y, sv.q.z,
+                 sv.shape_type.to(torch.float32)]
+    return PackedShapes(p8=torch.stack(cols, dim=-1),
+                        shape_type=sv.shape_type)
 
 
-def self_shapes(sv: ShapeView) -> GatheredShapes:
+def _capsule_of(x: Vec3, q: Quat, r, half_h) -> Capsule:
+    d_half = qrotate(q, Vec3(torch.zeros_like(half_h), half_h,
+                             torch.zeros_like(half_h)))
+    return Capsule(a=x - d_half, d=d_half * 2.0, r=r)
+
+
+def self_shapes(cfg: WorldConfig, sv: ShapeView) -> GatheredShapes:
     """The SELF side of a slot-major (width, N) batch without a gather:
     every slot row reads the same body arrays, so a (1, N) broadcast."""
     exp = lambda a: a[None, :]
     x = Vec3(exp(sv.x.x), exp(sv.x.y), exp(sv.x.z))
     delta = Vec3(exp(sv.delta.x), exp(sv.delta.y), exp(sv.delta.z))
-    return GatheredShapes(x=x, delta=delta,
-                          sphere=Sphere(c=x, r=exp(sv.shape_r)))
+    r = exp(sv.shape_r)
+    sphere = Sphere(c=x, r=r)
+    if cfg.shape_mode == "spheres":
+        return GatheredShapes(x=x, delta=delta, sphere=sphere)
+    q = Quat(exp(sv.q.w), exp(sv.q.x), exp(sv.q.y), exp(sv.q.z))
+    capsule = _capsule_of(x, q, r, exp(sv.shape_half_h))
+    stype = (exp(sv.shape_type) if cfg.shape_mode == "mixed"
+             else torch.ones_like(exp(sv.shape_type)))
+    return GatheredShapes(x=x, delta=delta, sphere=sphere, capsule=capsule,
+                          shape_type=stype)
 
 
-def gather_shapes(ps: PackedShapes, idx) -> GatheredShapes:
-    """The partner side: one 8-wide row gather per (slot, body) index."""
+def gather_shapes(cfg: WorldConfig, ps: PackedShapes, idx) -> GatheredShapes:
+    """The partner side: one 8- or 13-wide row gather per (slot, body)
+    index."""
     g = ps.p8[idx.long()]
     x = Vec3(g[..., 0], g[..., 1], g[..., 2])
     delta = Vec3(g[..., 3], g[..., 4], g[..., 5])
-    return GatheredShapes(x=x, delta=delta, sphere=Sphere(c=x, r=g[..., 6]))
+    r = g[..., 6]
+    sphere = Sphere(c=x, r=r)
+    if cfg.shape_mode == "spheres":
+        return GatheredShapes(x=x, delta=delta, sphere=sphere)
+    capsule = _capsule_of(
+        x, Quat(g[..., 8], g[..., 9], g[..., 10], g[..., 11]), r, g[..., 7])
+    stype = (g[..., 12].to(torch.int32) if cfg.shape_mode == "mixed"
+             else torch.ones_like(idx))
+    return GatheredShapes(x=x, delta=delta, sphere=sphere, capsule=capsule,
+                          shape_type=stype)
 
 
 def _block8(g: GatheredShapes, shape):
@@ -298,54 +350,189 @@ def _block8(g: GatheredShapes, shape):
 
 def manifold_prox_sq(cfg: WorldConfig) -> float:
     """Pruner proximity-merge threshold for this config (manifold.rs:38,
-    or the tight one of the capsule "ends" extension)."""
+    or the tight one of the capsule "ends" extension, so that intentional
+    endpoint pairs less than sqrt(0.5) apart survive the merge)."""
     return 1.0e-4 if cfg.cap_manifold == "ends" else PERSISTENT_THRESHOLD_SQ
 
 
-def _pair_contact(ga: GatheredShapes, gb: GatheredShapes) -> Contact:
-    """Contact slots (1, width, N) for sphere pairs (receiver a, argument
-    b), the reference's loop order (world.rs:260-275)."""
-    return contact_stack([contact_moving_moving(
-        contact_sphere_moving_sphere, ga.sphere, ga.delta, gb.sphere,
-        gb.delta)])
+def _two_slot(c: Contact) -> Contact:
+    """[c, invalid]: a single contact in a two-slot manifold."""
+    return contact_stack_bcast([c, c._replace(
+        valid=torch.zeros_like(c.valid))])
 
 
-def _terrain_contact(gt: GatheredShapes, tri: Triangle) -> Contact:
-    """Contact slots (1, width, N) for (triangle, body) pairs, flipped so
+def _slot(c: Contact, s: int) -> Contact:
+    return tree_map(lambda x: x[s], c)
+
+
+def _cols(t, lo: int, hi: int):
+    """Columns [lo, hi) of every tensor of a tree of (..., N) tensors."""
+    return tree_map(lambda g: g[..., lo:hi], t)
+
+
+def _cat_cols(parts):
+    return tree_map(lambda *xs: torch.cat(xs, dim=-1), *parts)
+
+
+def _pair_contact(cfg: WorldConfig, ga: GatheredShapes,
+                  gb: GatheredShapes) -> Contact:
+    """Contact slots (S, width, N) for body pairs (receiver a, argument b),
+    the reference's loop order (world.rs:260-275); S = 1 for spheres, else
+    2."""
+    ends = cfg.cap_manifold == "ends"
+    cc_fn = lambda c1, c2, v: contact_capsule_moving_capsule(c1, c2, v,
+                                                             ends=ends)
+    va, vb = ga.delta, gb.delta
+    if cfg.shape_mode == "spheres":
+        # sphere pairs emit exactly one contact: no second slot
+        return contact_stack_bcast([contact_moving_moving(
+            contact_sphere_moving_sphere, ga.sphere, va, gb.sphere, vb)])
+    if cfg.shape_mode == "capsules":
+        c_cc = contact_moving_moving(cc_fn, ga.capsule, va, gb.capsule, vb)
+        return c_cc if ends else _two_slot(c_cc)
+
+    # mixed: evaluate all four type pairs, select by (type_a, type_b)
+    c_ss = contact_moving_moving(contact_sphere_moving_sphere,
+                                 ga.sphere, va, gb.sphere, vb)
+    c_cc = contact_moving_moving(cc_fn, ga.capsule, va, gb.capsule, vb)
+    c_cs = contact_moving_moving(contact_capsule_moving_sphere,
+                                 ga.capsule, va, gb.sphere, vb)
+    c_sc = contact_moving_moving(contact_sphere_moving_capsule,
+                                 ga.sphere, va, gb.capsule, vb)
+    both_s = (ga.shape_type == SHAPE_SPHERE) & (gb.shape_type == SHAPE_SPHERE)
+    both_c = ((ga.shape_type == SHAPE_CAPSULE)
+              & (gb.shape_type == SHAPE_CAPSULE))
+    cap_sph = ((ga.shape_type == SHAPE_CAPSULE)
+               & (gb.shape_type == SHAPE_SPHERE))
+    if ends:
+        cc0, cc1 = _slot(c_cc, 0), _slot(c_cc, 1)
+        s0 = contact_select(both_s, c_ss,
+                            contact_select(both_c, cc0,
+                                           contact_select(cap_sph, c_cs,
+                                                          c_sc)))
+        s1 = cc1._replace(valid=cc1.valid & both_c)
+        return contact_stack_bcast([s0, s1])
+    c = contact_select(both_s, c_ss,
+                       contact_select(both_c, c_cc,
+                                      contact_select(cap_sph, c_cs, c_sc)))
+    return _two_slot(c)
+
+
+def _pair_contact_split(cfg: WorldConfig, ga: GatheredShapes,
+                        gb: GatheredShapes, ns: int) -> Contact:
+    """Mixed-mode pair narrowphase with bodies PARTITIONED by type along
+    the column axis: spheres in columns [0, ns), capsules in [ns, N).  The
+    self side's shape type is then static per block, so each pair evaluates
+    TWO type routines instead of four; the contacts are bit-identical to
+    :func:`_pair_contact`.  Needs type-sorted bodies (SceneBuilder callers
+    add the spheres first)."""
+    ends = cfg.cap_manifold == "ends"
+    cc_fn = lambda c1, c2, v: contact_capsule_moving_capsule(c1, c2, v,
+                                                             ends=ends)
+    n = gb.sphere.r.shape[-1]
+    parts = []
+    if ns > 0:
+        a, b = _cols(ga, 0, ns), _cols(gb, 0, ns)
+        va, vb = a.delta, b.delta
+        c_ss = contact_moving_moving(contact_sphere_moving_sphere,
+                                     a.sphere, va, b.sphere, vb)
+        c_sc = contact_moving_moving(contact_sphere_moving_capsule,
+                                     a.sphere, va, b.capsule, vb)
+        part_sph = b.shape_type == SHAPE_SPHERE
+        parts.append(_two_slot(contact_select(part_sph, c_ss, c_sc)))
+    if ns < n:
+        a, b = _cols(ga, ns, n), _cols(gb, ns, n)
+        va, vb = a.delta, b.delta
+        c_cs = contact_moving_moving(contact_capsule_moving_sphere,
+                                     a.capsule, va, b.sphere, vb)
+        c_cc = contact_moving_moving(cc_fn, a.capsule, va, b.capsule, vb)
+        part_sph = b.shape_type == SHAPE_SPHERE
+        if ends:
+            cc0, cc1 = _slot(c_cc, 0), _slot(c_cc, 1)
+            s0 = contact_select(part_sph, c_cs, cc0)
+            s1 = cc1._replace(valid=cc1.valid & ~part_sph)
+            parts.append(contact_stack_bcast([s0, s1]))
+        else:
+            parts.append(_two_slot(contact_select(part_sph, c_cs, c_cc)))
+    return _cat_cols(parts)
+
+
+def _terrain_contact(cfg: WorldConfig, gt: GatheredShapes,
+                     tri: Triangle) -> Contact:
+    """Contact slots (S, width, N) for (triangle, body) pairs, flipped so
     the BODY is side "a" (a = body point, b = terrain point,
     n = -triangle normal)."""
-    return contact_neg(contact_stack([contact_triangle_moving_sphere(
-        tri, gt.sphere, gt.delta)]))
+    v = gt.delta
+    if cfg.shape_mode == "spheres":
+        out = contact_stack_bcast([contact_triangle_moving_sphere(
+            tri, gt.sphere, v)])
+    elif cfg.shape_mode == "capsules":
+        out = contact_triangle_moving_capsule(tri, gt.capsule, v)
+    else:
+        cs2 = _two_slot(contact_triangle_moving_sphere(tri, gt.sphere, v))
+        cc = contact_triangle_moving_capsule(tri, gt.capsule, v)
+        out = contact_select(gt.shape_type == SHAPE_SPHERE, cs2, cc)
+    return contact_neg(out)
+
+
+def _terrain_contact_split(cfg: WorldConfig, gt: GatheredShapes,
+                           tri: Triangle, ns: int) -> Contact:
+    """Type-partitioned terrain narrowphase: the four-stage triangle x
+    capsule routine (collision.rs:693-1086) runs ONLY on the capsule column
+    block; sphere columns get the face/edge sphere test.  Bit-identical
+    contacts to :func:`_terrain_contact`."""
+    n = gt.sphere.r.shape[-1]
+    parts = []
+    if ns > 0:
+        g, t_ = _cols(gt, 0, ns), _cols(tri, 0, ns)
+        parts.append(_two_slot(contact_triangle_moving_sphere(
+            t_, g.sphere, g.delta)))
+    if ns < n:
+        g, t_ = _cols(gt, ns, n), _cols(tri, ns, n)
+        parts.append(contact_triangle_moving_capsule(t_, g.capsule,
+                                                     g.delta))
+    return contact_neg(_cat_cols(parts))
+
+
+def _body_bounds(cfg: WorldConfig, sv) -> AABB:
+    spheres, capsules = colliders(sv)
+    if cfg.shape_mode == "spheres":
+        return sphere_aabb(spheres)
+    if cfg.shape_mode == "capsules":
+        return capsule_aabb(capsules)
+    sb = sphere_aabb(spheres)
+    cb = capsule_aabb(capsules)
+    is_sph = sv.shape_type == SHAPE_SPHERE
+    return AABB(c=where_vec(is_sph, sb.c, cb.c),
+                r=where_vec(is_sph, sb.r, cb.r))
 
 
 def _check_slice(cfg: WorldConfig, world: World, n_tris: int):
-    """Raise for any configuration off the two sphere branches."""
+    """Raise for any configuration the port does not run yet."""
     off = None
     if cfg.profile_stage:
         off = ("profile_stage (becomes profiler ranges)", 14)
     elif cfg.solver != "rows":
         off = (f"solver={cfg.solver!r}", 10)
-    elif cfg.shape_mode != "spheres":
-        off = (f"shape_mode={cfg.shape_mode!r}", 9)
-    elif not cfg.use_grid or cfg.broadphase not in ("packed", "fat27x4"):
-        off = (f"broadphase={cfg.broadphase!r}/use_grid={cfg.use_grid}", 14)
+    elif cfg.shape_mode not in ("spheres", "capsules", "mixed"):
+        raise ValueError(f"unknown shape_mode {cfg.shape_mode!r}")
+    elif cfg.use_grid and cfg.broadphase not in ("packed", "fat27x4"):
+        off = (f"broadphase={cfg.broadphase!r}", 14)
     elif cfg.bp_margin > 0.0:
         off = ("bp_margin (the fat-proxy refit cache)", 14)
     elif n_tris > 0 and cfg.terrain_bp == "grid":
         off = ("terrain_bp='grid'", 11)
-    elif cfg.cap_manifold != "mid":
-        off = ("cap_manifold='ends'", 9)
-    elif not cfg.fused_iso and cfg.warm_start:
-        off = ("warm_start on the generic (non-fused_iso) branch", 14)
     elif not cfg.fused_iso and cfg.solver_rows:
         off = ("solver_rows compaction", 14)
     if off is not None:
         raise NotImplementedError(
-            f"mgf_tpu_torch runs the fused_iso and generic sphere branches; "
+            f"mgf_tpu_torch runs the fused_iso branch and the generic "
+            f"branch for spheres, capsules and mixed piles; "
             f"{off[0]} arrives with ROADMAP slice {off[1]}")
     # the JAX package's own guards
     if cfg.fused_iso and (
-            not cfg.warm_start or cfg.solver_rows or world.warm is None
+            cfg.shape_mode != "spheres" or not cfg.warm_start
+            or cfg.solver_rows or world.warm is None
             or (n_tris > 0 and cfg.terrain_bp not in ("near", "grid"))):
         raise ValueError(
             "cfg.fused_iso requires shape_mode='spheres', solver='rows',"
@@ -410,7 +597,10 @@ def _match_warm(warm: SolverWarm, partner_rows, key2_rows, n: int,
     else:
         eq = ((partner_rows[:, None, :] == warm.partner[None])
               & (key2_rows[:, None, :] == warm.key2[None]))
-    first = eq & (torch.cumsum(eq.to(torch.int32), dim=1) == 1)
+    # first-match one-hot over the previous slots.  The running count is
+    # int32 on purpose: torch.cumsum would promote a narrower integer to
+    # int64, and the (R, R_prev, N) tensor is the step's largest
+    first = eq & (torch.cumsum(eq, dim=1, dtype=torch.int32) == 1)
     wn = torch.zeros(partner_rows.shape, dtype=torch.float32,
                      device=partner_rows.device)
     wt1, wt2 = wn, wn
@@ -467,17 +657,24 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     n_tris = world.terrain.a.x.shape[0]
     _check_slice(cfg, world, n_tris)
     fused = cfg.fused_iso
+    iso_mode = cfg.shape_mode == "spheres"
+    n_slots = 1 if iso_mode else 2
     state = complete_motion(world.bodies)
-    state = integrate(state, cfg.dt, iso=True)
+    state = integrate(state, cfg.dt, iso=iso_mode)
     n = state.n_bodies
     dev = state.x.x.device
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
     sv = shape_view(state)
     light = cfg.light_metrics
+    # type-partitioned mixed narrowphase (see cfg.n_sphere_rows): needs
+    # type-sorted bodies and a culled (or absent) terrain
+    split_mixed = (cfg.shape_mode == "mixed" and cfg.n_sphere_rows >= 0
+                   and (n_tris == 0 or cfg.terrain_bp in ("near", "grid")))
 
-    # ---- broadphase: packed grid, or the fat grid (cached or not) ----
+    # ---- broadphase: all pairs, packed grid, or the fat grid (cached or
+    # not) ----
     alive = state.shape_r > 0.0
-    body_bounds = sphere_aabb(colliders(sv))
+    body_bounds = _body_bounds(cfg, sv)
     bounds = broadphase.swept_fat_bounds(body_bounds, state.delta, cfg.fatten)
     r_eff = torch.where(alive, torch.maximum(
         bounds.r.x, torch.maximum(bounds.r.y, bounds.r.z)), 0.0)
@@ -489,7 +686,7 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
         top2sum = torch.where(torch.sum(r_eff == m1) >= 2, 2.0 * m1, m1 + m2)
     else:
         top2sum = f32(0.0)
-    if light:
+    if light or not cfg.use_grid:
         reach_excess = f32(0.0)
         span_excess = f32(0.0)
     else:
@@ -508,15 +705,19 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     rebuild = True
     need = torch.tensor(True, device=dev)
     bp_drift_excess = f32(0.0)
-    if cfg.broadphase == "packed":
-        table = broadphase.build_grid(bounds.c, cfg.grid, valid=alive)
-        cand = broadphase.neighbor_candidates(bounds.c, table, cfg.grid)
+    if not cfg.use_grid or cfg.broadphase == "packed":
+        if cfg.use_grid:
+            table = broadphase.build_grid(bounds.c, cfg.grid, valid=alive)
+            cand = broadphase.neighbor_candidates(bounds.c, table, cfg.grid)
+            overflow = table.overflow
+        else:
+            cand = broadphase.all_pairs_candidates(n, dev)
+            overflow = torch.zeros((), dtype=torch.int32, device=dev)
         partner, pair_ok = broadphase.refine_pairs(bounds, cand,
                                                    cfg.max_pairs,
                                                    ordered=False)
-        if cfg.stable_pairs:
+        if cfg.stable_pairs and cfg.broadphase == "packed":
             partner, pair_ok = _stable_sort_pairs(partner, pair_ok)
-        overflow = table.overflow
     elif cfg.bp_every > 1 and bp is not None:
         # staleness-gated cache around the fat grid
         x_end = state.x + state.delta
@@ -555,7 +756,7 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     partner_t = partner.T
     pair_ok_t = pair_ok.T
     cols2 = torch.where(pair_ok_t, partner_t, 0)
-    ga = self_shapes(sv)                          # (1, N) broadcasts
+    ga = self_shapes(cfg, sv)                     # (1, N) broadcasts
     if fused:
         # previous frame's mass-splitting counts, from the warm state
         cnt_prev = torch.clamp(torch.sum(
@@ -579,20 +780,23 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
             restitution=g18[..., 13], friction=g18[..., 14],
             inv_mass=g18[..., 15], count=g18[..., 16], iso=g18[..., 17])
     else:
-        gb = gather_shapes(pack_shapes(sv), cols2)   # (K, N) partner side
-    if cfg.pallas_narrowphase and not fused:
+        # (K, N) partner side: one wide row gather
+        gb = gather_shapes(cfg, pack_shapes(sv, cfg.shape_mode), cols2)
+    if cfg.pallas_narrowphase and iso_mode and not fused:
         # kernel K2 on (8, K*N) blocks: the self side is the body columns
         # repeated per slot, the partner side the gathered rows
         c = sphere_contact_pairs(_block8(ga, (K, n)), _block8(gb, (K, n)))
-        pc = contact_stack([tree_map(lambda x: x.reshape(K, n), c)])
+        pc = contact_stack_bcast([tree_map(lambda x: x.reshape(K, n), c)])
+    elif split_mixed:
+        pc = _pair_contact_split(cfg, ga, gb, cfg.n_sphere_rows)
     else:
-        pc = _pair_contact(ga, gb)                # slots (1, K, N)
+        pc = _pair_contact(cfg, ga, gb)           # slots (S, K, N)
     pc = pc._replace(valid=pc.valid & pair_ok_t[None])
     lc = LocalContact(local_a=pc.a - (ga.x + ga.delta * pc.t),
                       local_b=pc.b - (gb.x + gb.delta * pc.t),
                       contact=pc)
     prox = manifold_prox_sq(cfg)
-    pair_manifold = prune(lc, max_contacts=1, prox_sq=prox)
+    pair_manifold = prune(lc, max_contacts=n_slots, prox_sq=prox)
     max_pen = f32(0.0) if light else _deepest(pc)
 
     # ---- terrain narrowphase: dense, or the "near" cull ----
@@ -626,29 +830,31 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
             t_valid = None
             tri = tree_map(lambda x: x[:, None].expand(n_tris, n),
                            world.terrain)
-        tc = _terrain_contact(ga, tri)                 # slots (1, T_w, N)
-        if t_valid is not None:
+        tc = (_terrain_contact_split(cfg, ga, tri, cfg.n_sphere_rows)
+              if split_mixed else _terrain_contact(cfg, ga, tri))
+        if t_valid is not None:                        # slots (S, T_w, N)
             tc = tc._replace(valid=tc.valid & t_valid[None])
         t_lc = LocalContact(local_a=tc.a - (ga.x + ga.delta * tc.t),
                             local_b=tc.b - world.terrain_center,
                             contact=tc)
-        t_manifold = prune(t_lc, max_contacts=1, prox_sq=prox)
+        t_manifold = prune(t_lc, max_contacts=n_slots, prox_sq=prox)
         if not light:
             max_pen = torch.maximum(max_pen, _deepest(tc))
 
     # ---- scatter-free row constraints ----
-    S_pair = pair_manifold.valid.shape[0]
+    # row layout: [pair slot0 K | pair slot1 K | terrain slot0 C | terrain
+    # slot1 C] (one slot block each for spheres)
     blocks = [_man_to_rows(pair_manifold, K, n)]
     partners = [torch.where(pair_ok_t, partner_t, n)[None].expand(
-        S_pair, K, n).reshape(-1, n)]
+        n_slots, K, n).reshape(-1, n)]
     # warm-start row keys: pair rows by manifold slot id, terrain rows by
     # triangle id (their partner is the static row n: no collision)
-    key2s = [torch.arange(S_pair, dtype=torch.int32, device=dev)[
-        :, None, None].expand(S_pair, K, n).reshape(-1, n)]
+    key2s = [torch.arange(n_slots, dtype=torch.int32, device=dev)[
+        :, None, None].expand(n_slots, K, n).reshape(-1, n)]
     if n_tris > 0:
         tman = _man_to_rows(t_manifold, t_width, n)    # (S*T_w, N)
         t_key2 = t_tris.reshape(1, t_width, n).expand(
-            S_pair, t_width, n).reshape(-1, n)
+            n_slots, t_width, n).reshape(-1, n)
         t_rows_n = tman.valid.shape[0]
         if cfg.terrain_rows and t_rows_n > cfg.terrain_rows:
             tman, t_key2 = _top_terrain_rows(tman, t_key2, cfg.terrain_rows)
@@ -664,44 +870,34 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     warm_hit_frac = f32(0.0)
     new_warm = world.warm
 
+    # TWO-BLOCK split (mixed): sphere columns can never hold slot-1 pair or
+    # terrain rows (spheres emit one contact per pair) and their self
+    # inertia is a scalar, so both the constraint build and the solve run
+    # as: sphere block over its K + C live rows, then capsule block over
+    # all rows with Mat3 inertia
+    split_solve = split_mixed and not cfg.terrain_rows
+    if split_solve:
+        ns_b = cfg.n_sphere_rows
+        C_t = t_width if n_tris > 0 else 0
+        rows_a = lambda g: torch.cat(
+            [g[0:K, :ns_b], g[2 * K:2 * K + C_t, :ns_b]], dim=0)
+        rows_b = lambda g: g[:, ns_b:]
+
+    # ---- constraint precompute ----
+    n_pair_rows = None
+    pt0 = None
     if fused:
         # gather-free precompute: pair-row partner fields rode the
         # narrowphase gather, terrain rows have the static body as partner
-        n_pair_rows = S_pair * K
+        n_pair_rows = n_slots * K
         bv = BodyView(x=state.x + state.delta, v=state.v, omega=state.omega,
                       restitution=state.restitution, friction=state.friction,
                       inv_mass=state.inv_mass, inv_moment=state.inv_moment)
         rc = build_row_constraints_iso_fused(
             bv, cnt_prev, pf, partner_rows, man_rows, cfg.dt,
             world.terrain_center, n_pair_rows, bias_max=cfg.bias_max)
-
-        # warm matching (JAX hybrid: lax.cond on the same `need`)
-        search = (cfg.warm_match == "search"
-                  or (cfg.warm_match == "hybrid" and rebuild))
-        wn, wt1, wt2, matched = _match_warm(world.warm, partner_rows,
-                                            key2_rows, n, n_tris, search)
-        if cfg.warm_gamma != 1.0:
-            g = cfg.warm_gamma
-            wn, wt1, wt2 = wn * g, wt1 * g, wt2 * g
-        use_pk = (cfg.pallas_solver and not cfg.two_phase
-                  and cfg.friction_mode == "textbook")
-        warm_hit_frac = (
-            torch.sum((matched & rc_valid).to(torch.float32))
-            / torch.clamp(torch.sum(rc_valid.to(torch.float32)), min=1.0))
-        schedule = (cfg.solver_iters, cfg.solver_inner)
-        if cfg.adapt_schedule is not None:
-            # JAX: lax.cond on the device; here a second host read
-            thr, it2, in2 = cfg.adapt_schedule
-            if float(warm_hit_frac) >= thr:
-                schedule = (int(it2), int(in2))
-        v, omega, acc = solve_rows(
-            rc, state.v, state.omega, state.inv_mass, state.inv_moment.xx,
-            schedule[0], cfg.friction_mode, cfg.two_phase, schedule[1],
-            warm=(wn, wt1, wt2), return_acc=True, n_gather_rows=n_pair_rows,
-            pallas_inner=use_pk)
-        new_warm = SolverWarm(partner=torch.where(rc_valid, partner_rows, -9),
-                              key2=key2_rows, acc_n=acc[0], acc_t1=acc[1],
-                              acc_t2=acc[2])
+        sv_in = (state.v, state.omega, state.inv_mass)
+        solver_inertia = state.inv_moment.xx
     else:
         # mass splitting: every contact of body i is in column i; the
         # static terrain row (index n) counts 1
@@ -718,13 +914,109 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
             friction=srow(state.friction),   # Static{friction: 0}, world.rs:247
             inv_mass=srow(state.inv_mass),
             inv_moment=tree_map(srow, state.inv_moment))
-        rc, pt0 = build_row_constraints_iso(
-            bodies_ext, partner_rows, man_rows, cfg.dt, counts=counts,
-            bias_max=cfg.bias_max)
-        v, omega = solve_rows(
-            rc, bodies_ext.v, bodies_ext.omega, bodies_ext.inv_mass,
-            bodies_ext.inv_moment.xx, cfg.solver_iters, cfg.friction_mode,
-            cfg.two_phase, cfg.solver_inner, partner_term0=pt0)
+        sv_in = (bodies_ext.v, bodies_ext.omega, bodies_ext.inv_mass)
+        if iso_mode:
+            rc, pt0 = build_row_constraints_iso(
+                bodies_ext, partner_rows, man_rows, cfg.dt, counts=counts,
+                bias_max=cfg.bias_max)
+            solver_inertia = bodies_ext.inv_moment.xx
+        elif split_solve:
+            # per-block precompute: the slot-1 rows of sphere columns are
+            # never built at all
+            rc = None
+            rc_a = build_row_constraints(
+                bodies_ext, rows_a(partner_rows), tree_map(rows_a, man_rows),
+                cfg.dt, counts=counts, bias_max=cfg.bias_max)
+            rc_b = build_row_constraints(
+                bodies_ext, rows_b(partner_rows), tree_map(rows_b, man_rows),
+                cfg.dt, counts=counts, col_offset=ns_b,
+                bias_max=cfg.bias_max)
+            solver_inertia = bodies_ext.inv_moment
+        else:
+            rc = build_row_constraints(bodies_ext, partner_rows, man_rows,
+                                       cfg.dt, counts=counts,
+                                       bias_max=cfg.bias_max)
+            solver_inertia = bodies_ext.inv_moment
+
+    # ---- warm matching (JAX hybrid: lax.cond on the same `need`) ----
+    warm = None
+    matched = None
+    if cfg.warm_start and world.warm is not None:
+        search = (cfg.warm_match == "search"
+                  or (cfg.warm_match == "hybrid" and rebuild))
+        wn, wt1, wt2, matched = _match_warm(world.warm, partner_rows,
+                                            key2_rows, n, n_tris, search)
+        if cfg.warm_gamma != 1.0:
+            # applied once at match time, before the block partition
+            g = cfg.warm_gamma
+            wn, wt1, wt2 = wn * g, wt1 * g, wt2 * g
+        warm = (wn, wt1, wt2)
+
+    # ---- solve ----
+    use_pk = (cfg.pallas_solver and fused and not cfg.two_phase
+              and cfg.friction_mode == "textbook")
+    if split_solve:
+        iso_arr = bodies_ext.inv_moment.xx
+        warm_a = warm_b = None
+        if warm is not None:
+            warm_a = tuple(rows_a(w) for w in warm)
+            warm_b = tuple(rows_b(w) for w in warm)
+
+        def run_solve(it, inner):
+            # spheres first, then capsules from the state the sphere block
+            # solved: a two-colour Gauss-Seidel
+            S1, acc_a = solve_rows(
+                rc_a, sv_in[0], sv_in[1], sv_in[2], iso_arr, it,
+                cfg.friction_mode, cfg.two_phase, inner, warm=warm_a,
+                return_acc=True, return_state=True)
+            S2, acc_b = solve_rows(
+                rc_b, sv_in[0], sv_in[1], sv_in[2], solver_inertia, it,
+                cfg.friction_mode, cfg.two_phase, inner, warm=warm_b,
+                return_acc=True, state0=S1, return_state=True,
+                col_offset=ns_b)
+            v2, o2 = unpack_body_state(S2)
+            accs = []
+            for k in range(3):
+                a = torch.zeros(rc_valid.shape, dtype=torch.float32,
+                                device=dev)
+                a[:, ns_b:] = acc_b[k]
+                a[0:K, :ns_b] = acc_a[k][0:K]
+                if C_t:
+                    a[2 * K:2 * K + C_t, :ns_b] = acc_a[k][K:K + C_t]
+                accs.append(a)
+            return v2, o2, tuple(accs)
+    else:
+        def run_solve(it, inner):
+            # NOTE: pt0 is not passed to a warm solve: the warm pre-apply
+            # moves partner velocities by full accumulated impulses, so a
+            # pre-warm frozen term is too stale (see the JAX package)
+            return solve_rows(
+                rc, sv_in[0], sv_in[1], sv_in[2], solver_inertia, it,
+                cfg.friction_mode, cfg.two_phase, inner, warm=warm,
+                return_acc=True, n_gather_rows=n_pair_rows,
+                pallas_inner=use_pk,
+                partner_term0=None if cfg.warm_start else pt0)
+
+    schedule = (cfg.solver_iters, cfg.solver_inner)
+    if cfg.warm_start:
+        if matched is not None:
+            warm_hit_frac = (
+                torch.sum((matched & rc_valid).to(torch.float32))
+                / torch.clamp(torch.sum(rc_valid.to(torch.float32)),
+                              min=1.0))
+        if cfg.adapt_schedule is not None and matched is not None:
+            # JAX: lax.cond on the device; here a second host read (the
+            # chunk stepper of driver.py clears adapt_schedule and picks
+            # the schedule itself, two chunks late)
+            thr, it2, in2 = cfg.adapt_schedule
+            if float(warm_hit_frac) >= thr:
+                schedule = (int(it2), int(in2))
+        v, omega, acc = run_solve(*schedule)
+        new_warm = SolverWarm(partner=torch.where(rc_valid, partner_rows, -9),
+                              key2=key2_rows, acc_n=acc[0], acc_t1=acc[1],
+                              acc_t2=acc[2])
+    else:
+        v, omega, _ = run_solve(*schedule)
 
     # NOTE: ``delta`` keeps its pre-solve value, as in the JAX package
     vt = Vec3(*(c[:n] for c in v))

@@ -7,7 +7,12 @@
 * ``cold20``: the same pile on the generic branch with the reference's
   solver schedule (warm starting off, 20 two-phase sweeps, kernel K2 on;
   bench.py's ``stress_cold20`` row);
-* ``balls``: the demo ``balls_scene(11)`` (1,332 bodies, K2 on).
+* ``balls``: the demo ``balls_scene(11)`` (1,332 bodies, K2 on);
+* ``mixed``: ``stress_scene(--bodies, mixed=True)``, the sphere/capsule pile
+  on the generic branch (type-partitioned narrowphase, two chained block
+  solves, no hand-written kernel) through ``AdaptiveChunkStepper``;
+* ``capsules``: the demo ``capsules_scene(11)`` (1,331 capsules, 20
+  two-phase sweeps with Mat3 inertia).
 
 Steps the scene in chunks of ``--chunk`` (light interior metrics) for
 ``--warmup`` steps, times ``--steps`` more with the host clock
@@ -19,6 +24,7 @@ goes to ``--out``.
 
     python3 scripts/torch_profile_step.py --bodies 100000 --warmup 600
     python3 scripts/torch_profile_step.py --scene cold20 --warmup 180
+    python3 scripts/torch_profile_step.py --scene mixed
 
 Needs a CUDA card; imports no JAX.
 """
@@ -40,9 +46,12 @@ from mgf_tpu_torch.driver import (  # noqa: E402
     AdaptiveChunkStepper, make_chunk_step,
 )
 from mgf_tpu_torch.ops import narrowphase, solver_sweep  # noqa: E402
-from mgf_tpu_torch.scenes import balls_scene, stress_scene  # noqa: E402
+from mgf_tpu_torch.scenes import (  # noqa: E402
+    balls_scene, capsules_scene, stress_scene,
+)
 
-WARMUP = {"flagship": 600, "cold20": 180, "balls": 280}
+WARMUP = {"flagship": 600, "cold20": 180, "balls": 280, "mixed": 256,
+          "capsules": 280}
 
 
 class _Plain:
@@ -61,6 +70,12 @@ def _stepper(scene, bodies, chunk):
     if scene == "balls":
         world, cfg = balls_scene(11)
         return world, _Plain(cfg._replace(pallas_narrowphase=True), chunk)
+    if scene == "capsules":
+        world, cfg = capsules_scene(11)
+        return world, _Plain(cfg, chunk)
+    if scene == "mixed":
+        world, cfg = stress_scene(bodies, mixed=True)
+        return world, AdaptiveChunkStepper(cfg, chunk=chunk, light=True)
     world, cfg = stress_scene(bodies)
     if scene == "flagship":
         return world, AdaptiveChunkStepper(cfg, chunk=chunk, light=True)
@@ -69,6 +84,40 @@ def _stepper(scene, bodies, chunk):
                        solver_iters=20, solver_inner=1, two_phase=True,
                        pallas_narrowphase=True)
     return world._replace(warm=None), _Plain(cfg, chunk)
+
+
+class _Guards:
+    """The physics guards over every step run so far: the worst bucket
+    overflow and the first step that had any, the worst cache drift excess,
+    the deepest penetration among the steps that report it (the last of
+    each chunk), and at the end the bodies below y = -1 or outside the
+    terrain's x/z extent."""
+
+    def __init__(self):
+        self.steps, self.over, self.first, self.drift = 0, 0, None, 0.0
+        self.pen, self.pen_step = 0.0, 0
+
+    def add(self, m):
+        over = m["broadphase_overflow"].tolist()
+        if self.first is None and any(over):
+            self.first = self.steps + 1 + next(
+                i for i, o in enumerate(over) if o)
+        self.over = max(self.over, max(over))
+        self.drift = max(self.drift,
+                         float(m["broadphase_cache_drift_excess"].max()))
+        self.steps += len(over)
+        pen = float(m["max_penetration"][-1])
+        if pen > self.pen:
+            self.pen, self.pen_step = pen, self.steps
+
+    def line(self, world):
+        b, t = world.bodies, world.terrain
+        wall = max(float(c.abs().max()) for v in t for c in (v.x, v.z))
+        out = (b.x.y < -1.0) | (b.x.x.abs() > wall) | (b.x.z.abs() > wall)
+        return (f"guards over {self.steps} steps: overflow worst step "
+                f"{self.over} (first at step {self.first}), drift excess "
+                f"{self.drift}, deepest chunk-end penetration {self.pen:.4f} "
+                f"(step {self.pen_step}), escaped bodies {int(out.sum())}")
 
 
 def _dev_time(ev):
@@ -84,7 +133,7 @@ def main():
     ap.add_argument("--bodies", type=int, default=100_000)
     ap.add_argument("--warmup", type=int, default=None,
                     help="steps before timing (default: 600 flagship, "
-                         "180 cold20, 280 balls)")
+                         "180 cold20, 280 balls, 256 mixed, 280 capsules)")
     ap.add_argument("--steps", type=int, default=128)
     ap.add_argument("--chunk", type=int, default=16)
     ap.add_argument("--out", default="build/profile_torch.txt")
@@ -97,9 +146,11 @@ def main():
     print(f"device: {smi}")
     warmup = WARMUP[args.scene] if args.warmup is None else args.warmup
     world, st = _stepper(args.scene, args.bodies, args.chunk)
+    guards = _Guards()
     t0 = time.perf_counter()
     for _ in range(-(-warmup // args.chunk)):
         world, m = st.step_chunk(world)
+        guards.add(m)
     torch.cuda.synchronize()
     print(f"scene {args.scene}, {world.bodies.n_bodies} bodies; warmup "
           f"{warmup} steps: {time.perf_counter() - t0:.2f} s")
@@ -112,6 +163,7 @@ def main():
         torch.cuda.synchronize()
         t_run += time.perf_counter() - t0
         rebuilds += int(m["broadphase_rebuilt"].sum())
+        guards.add(m)
     steps = n_chunks * args.chunk
     last = {k: float(v[-1]) for k, v in m.items()}
     print(f"timed {steps} steps: {steps / t_run:.2f} steps/s, "
@@ -120,6 +172,7 @@ def main():
           f"max pen {last['max_penetration']:.4f}, warm_hit "
           f"{last['warm_hit_frac']:.4f}, overflow "
           f"{int(last['broadphase_overflow'])}")
+    print(guards.line(world))
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

@@ -1,6 +1,7 @@
-"""mgf_tpu_torch and chip_smoke.py import neither jax nor mgf_tpu (the
-machine with the card has no JAX), and importing them initialises no CUDA
-context."""
+"""mgf_tpu_torch, chip_smoke.py and scripts/torch_profile_step.py import
+neither jax nor mgf_tpu (the machine with the card has no JAX), and
+importing them initialises no CUDA context.  The package is walked module
+by module, so a new module is covered without being named here."""
 
 import json
 import os
@@ -42,7 +43,7 @@ def test_port_imports_no_jax():
 
 _SMOKE_PROBE = """
 import json, sys
-import chip_smoke
+import {module} as chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "mgf_tpu" or m.startswith("mgf_tpu."))
@@ -52,12 +53,22 @@ print(json.dumps([bad, torch.cuda.is_initialized(),
 """
 
 
-def test_chip_smoke_imports_no_jax():
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    out = subprocess.run([sys.executable, "-c", _SMOKE_PROBE], cwd=ROOT,
+def _probe_script(module, where):
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([ROOT, os.path.join(ROOT, where)]))
+    out = subprocess.run([sys.executable, "-c",
+                          _SMOKE_PROBE.format(module=module)], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     bad, cuda_init, has_main = json.loads(
         out.stdout.strip().splitlines()[-1])
     assert bad == [], bad
     assert cuda_init is False and has_main
+
+
+def test_chip_smoke_imports_no_jax():
+    _probe_script("chip_smoke", "")
+
+
+def test_profile_script_imports_no_jax():
+    _probe_script("torch_profile_step", "scripts")

@@ -13,6 +13,12 @@ impulses over rows in another order than XLA's fused reductions, and
 4-12 sweeps compound that float32 noise.  Accumulators are compared on
 valid rows only (the jnp path also updates invalid rows, the kernel masks
 them; invalid-row accumulators are never consumed).
+
+The Mat3 path of capsules rides the same tolerance: ``build_row_constraints``
+over a column block (floats atol 1e-5 + rtol 1e-5, masks exact), the cold
+20-sweep two-phase solve with Mat3 inertia, and the mixed pile's two chained
+block solves (``col_offset``, ``state0``, ``return_state``; warm, 4 x 4
+single-phase).
 """
 
 import numpy as np
@@ -158,11 +164,21 @@ def test_solve_rows_rejects_unsupported_modes():
     with pytest.raises(NotImplementedError):
         tsol.solve_rows(trc, tb[0], tb[1], tb[2], tb[3], 2,
                         friction_mode="mgf")
+    # Mat3 inertia runs in the plain sweeps, and the kernel, which is
+    # scalar-inertia and whole-width, refuses it and a column offset
     iso = tb[3]
     z = torch.zeros_like(iso)
-    with pytest.raises(NotImplementedError):
-        tsol.solve_rows(trc, tb[0], tb[1], tb[2],
-                        TMat3(iso, z, z, z, iso, z, z, z, iso), 2)
+    mat = TMat3(iso, z, z, z, iso, z, z, z, iso)
+    v_m, o_m = tsol.solve_rows(trc, tb[0], tb[1], tb[2], mat, 2)
+    v_s, o_s = tsol.solve_rows(trc, tb[0], tb[1], tb[2], iso, 2)
+    for a, b in zip((*v_m, *o_m), (*v_s, *o_s)):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError):
+        tsol.solve_rows(trc, tb[0], tb[1], tb[2], mat, 2, two_phase=False,
+                        pallas_inner=True)
+    with pytest.raises(ValueError):
+        tsol.solve_rows(trc, tb[0], tb[1], tb[2], iso, 2, two_phase=False,
+                        pallas_inner=True, col_offset=1)
 
 
 @pytest.mark.parametrize("pallas", [False, True])
@@ -379,3 +395,160 @@ def test_sweep_kernel_limits():
     tss.inner_sweeps_blockmajor(*blk(1, 48), 1)
     with pytest.raises(ValueError):
         tss.inner_sweeps_blockmajor(*blk(2, 48), 1)
+
+
+# ---- Mat3 inertia, column blocks (col_offset / state0 / return_state) ----
+
+def _mat3_system(seed, m=501, ns=300, R=8, bias_max=-1.0):
+    """Random bodies with symmetric positive-definite inverse inertia (the
+    last of the M rows is the static terrain row: zero inverse mass and
+    inertia), and a random (R, M - 1) manifold whose partners point at any
+    of the M rows.  Columns [0, ns) stand for spheres (isotropic inertia),
+    [ns, M - 1) for capsules."""
+    rng = np.random.default_rng(seed)
+    n = m - 1
+    f32 = lambda *s, sc=1.0: (rng.standard_normal(s) * sc).astype(np.float32)
+    uni = lambda lo, hi, *s: rng.uniform(lo, hi, s).astype(np.float32)
+    L = f32(n, 3, 3, sc=0.4) + np.eye(3, dtype=np.float32)
+    I = np.einsum("nij,nkj->nik", L, L).astype(np.float32)
+    iso = uni(0.5, 2.0, ns)
+    I[:ns] = iso[:, None, None] * np.eye(3, dtype=np.float32)
+    I = np.concatenate([I, np.zeros((1, 3, 3), np.float32)])
+    stat = lambda a: np.concatenate([a, np.zeros(a.shape[:-1] + (1,),
+                                                 np.float32)], axis=-1)
+    body = dict(x=f32(3, m, sc=3.0), v=stat(f32(3, n)),
+                omega=stat(f32(3, n, sc=0.3)),
+                restitution=stat(uni(0.0, 0.5, n)),
+                friction=stat(uni(0.2, 0.8, n)),
+                inv_mass=stat(uni(0.5, 1.5, n)), I=I)
+    nrm = _unit(f32(3, R, n))
+    t1 = _unit(np.cross(nrm, np.asarray([1.0, 0.1, -0.2], np.float32)
+                        [:, None, None] + 0 * nrm, axis=0))
+    t2 = np.cross(nrm, t1, axis=0).astype(np.float32)
+    man = dict(time=uni(0, 1, R, n), normal=nrm, t1=t1, t2=t2,
+               local_a=f32(3, R, n, sc=0.5), local_b=f32(3, R, n, sc=0.5),
+               valid=rng.uniform(size=(R, n)) < 0.6)
+    partner = rng.integers(0, m, (R, n)).astype(np.int32)
+    counts = np.maximum(np.concatenate(
+        [man["valid"].sum(0), [1]]), 1).astype(np.float32)
+    warm = [uni(0, 0.2, R, n) for _ in range(3)]
+    return body, man, partner, counts, warm, bias_max
+
+
+def _mat3_side(mod, Vec, Mat, arr, Man, body):
+    c = lambda a: arr(np.ascontiguousarray(a))
+    vec = lambda a: Vec(*(c(x) for x in a))
+    I = body["I"]
+    bv = mod.BodyView(x=vec(body["x"]), v=vec(body["v"]),
+                      omega=vec(body["omega"]),
+                      restitution=c(body["restitution"]),
+                      friction=c(body["friction"]),
+                      inv_mass=c(body["inv_mass"]),
+                      inv_moment=Mat(*(c(I[:, i, j]) for i in range(3)
+                                       for j in range(3))))
+    mk_man = lambda man, cols: Man(**{
+        k: (vec(v[..., cols]) if v.ndim == 3 else c(v[..., cols]))
+        for k, v in man.items()})
+    return bv, mk_man, c
+
+
+_SIDES = [(jsol, JVec3, JMat3, jnp.asarray, JManifold),
+          (tsol, TVec3, TMat3, torch.as_tensor, TManifold)]
+
+
+@pytest.mark.parametrize("lo,hi,bias_max", [(0, 500, -1.0), (300, 500, -1.0),
+                                            (0, 300, 2.0)])
+def test_build_row_constraints_matches_jax(lo, hi, bias_max):
+    """The Mat3 constraint build over a column block [lo, hi), with mass
+    splitting and the bias clamp: masks and partners exact, floats atol
+    1e-5 + rtol 1e-5."""
+    body, man, partner, counts, _, _ = _mat3_system(31)
+    cols = slice(lo, hi)
+    out = []
+    for mod, Vec, Mat, arr, Man in _SIDES:
+        bv, mk_man, c = _mat3_side(mod, Vec, Mat, arr, Man, body)
+        out.append(mod.build_row_constraints(
+            bv, c(partner[:, cols]), mk_man(man, cols), 1.0 / 60.0,
+            counts=c(counts), col_offset=lo, bias_max=bias_max))
+    rj, rt = out
+    for f in rj._fields:
+        a, b = _np(getattr(rj, f)), _np(getattr(rt, f))
+        if a.dtype == bool or f == "partner":
+            np.testing.assert_array_equal(a, b, err_msg=f)
+        else:
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5,
+                                       err_msg=f)
+    if bias_max >= 0.0:
+        assert _np(rt.bias).max() > 1.0       # the clamp left restitution
+
+
+def test_solve_rows_mat3_cold_two_phase_20():
+    """The capsules demo's solve: cold, 20 two-phase sweeps, Mat3 inertia
+    over all columns.  v, omega atol 2e-4 (rtol 1e-4), accumulators on
+    valid rows."""
+    body, man, partner, counts, _, _ = _mat3_system(32)
+    cols = slice(0, 500)
+    out = []
+    for mod, Vec, Mat, arr, Man in _SIDES:
+        bv, mk_man, c = _mat3_side(mod, Vec, Mat, arr, Man, body)
+        rc = mod.build_row_constraints(bv, c(partner), mk_man(man, cols),
+                                       1.0 / 60.0, counts=c(counts))
+        out.append(mod.solve_rows(rc, bv.v, bv.omega, bv.inv_mass,
+                                  bv.inv_moment, 20, "textbook", True, 1,
+                                  return_acc=True))
+    _assert_solve(out[0], out[1], man["valid"])
+    assert np.isfinite(_np(out[1][0])).all()
+    assert np.abs(_np(out[1][1]) - body["omega"]).max() > 1e-3
+    # the static row never moves
+    assert np.abs(_np(out[1][0])[:, -1]).max() == 0.0
+
+
+def test_solve_rows_split_blocks_chain():
+    """The mixed pile's solve: warm, single-phase 4 x 4; the sphere block
+    (scalar inertia, columns [0, ns)) returns the packed state, the capsule
+    block (Mat3, ``col_offset=ns``) starts from it through ``state0``, so
+    its partner gathers read the sphere block's solved velocities.  Packed
+    state atol 2e-4 (rtol 1e-4), accumulators on valid rows."""
+    ns = 300
+    body, man, partner, counts, warm, _ = _mat3_system(33, ns=ns)
+    A, B = slice(0, ns), slice(ns, 500)
+    out = []
+    for mod, Vec, Mat, arr, Man in _SIDES:
+        bv, mk_man, c = _mat3_side(mod, Vec, Mat, arr, Man, body)
+        rc_a = mod.build_row_constraints(bv, c(partner[:, A]),
+                                         mk_man(man, A), 1.0 / 60.0,
+                                         counts=c(counts))
+        rc_b = mod.build_row_constraints(bv, c(partner[:, B]),
+                                         mk_man(man, B), 1.0 / 60.0,
+                                         counts=c(counts), col_offset=ns)
+        S1, acc_a = mod.solve_rows(
+            rc_a, bv.v, bv.omega, bv.inv_mass, bv.inv_moment.xx, 4,
+            "textbook", False, 4, warm=tuple(c(w[:, A]) for w in warm),
+            return_acc=True, return_state=True)
+        S2, acc_b = mod.solve_rows(
+            rc_b, bv.v, bv.omega, bv.inv_mass, bv.inv_moment, 4,
+            "textbook", False, 4, warm=tuple(c(w[:, B]) for w in warm),
+            return_acc=True, state0=S1, return_state=True, col_offset=ns)
+        out.append((S1, acc_a, S2, acc_b))
+    (j1, ja, j2, jb), (t1, ta, t2, tb) = out
+    assert _np(t2).shape == (8, 501)
+    for a, b in ((j1, t1), (j2, t2)):
+        np.testing.assert_allclose(_np(a), _np(b), atol=2e-4, rtol=1e-4)
+    for accs_j, accs_t, cols in ((ja, ta, A), (jb, tb, B)):
+        v = man["valid"][:, cols]
+        for a, b in zip(accs_j, accs_t):
+            np.testing.assert_allclose(_np(a)[v], _np(b)[v], atol=2e-4,
+                                       rtol=1e-4)
+    # block B left block A's columns as block A solved them, and moved its own
+    np.testing.assert_array_equal(_np(t2)[:, :ns], _np(t1)[:, :ns])
+    assert np.abs(_np(t2)[:6, ns:500] - _np(t1)[:6, ns:500]).max() > 1e-3
+    # and it read them: the same block solved from the pre-solve state differs
+    bv, mk_man, c = _mat3_side(*_SIDES[1], body)
+    rc_b = tsol.build_row_constraints(bv, c(partner[:, B]), mk_man(man, B),
+                                      1.0 / 60.0, counts=c(counts),
+                                      col_offset=ns)
+    S_alone = tsol.solve_rows(
+        rc_b, bv.v, bv.omega, bv.inv_mass, bv.inv_moment, 4, "textbook",
+        False, 4, warm=tuple(c(w[:, B]) for w in warm), return_state=True,
+        col_offset=ns)
+    assert np.abs(_np(S_alone)[:6, ns:500] - _np(t2)[:6, ns:500]).max() > 1e-3

@@ -365,15 +365,22 @@ def test_bp_every_trajectory_parity_settled(settled):
 
 def test_off_slice_configs_raise(settled):
     world, cfg = settled
-    for bad in (cfg._replace(fused_iso=False),
-                cfg._replace(profile_stage="pairs"),
+    for bad in (cfg._replace(profile_stage="pairs"),
                 cfg._replace(terrain_bp="grid"),
-                cfg._replace(shape_mode="mixed"),
                 cfg._replace(solver="parallel"),
+                cfg._replace(broadphase="fat8x4"),
                 cfg._replace(bp_margin=0.5)):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP slice"):
             step(world, bad)
-    with pytest.raises(ValueError):
-        step(world, cfg._replace(stable_pairs=False))
-    with pytest.raises(NotImplementedError):
-        t_stress_scene(100, mixed=True, device=CPU)
+    # the JAX package's own guards: the fused branch is for spheres, and
+    # the hybrid match needs canonical slots
+    for bad in (cfg._replace(shape_mode="mixed"),
+                cfg._replace(stable_pairs=False)):
+        with pytest.raises(ValueError):
+            step(world, bad)
+    # warm starting off the fused branch and the mixed pile run since the
+    # capsule slice
+    w2, m = step(world, cfg._replace(fused_iso=False, pallas_solver=False))
+    assert float(m["warm_hit_frac"]) > 0.9
+    w_mixed, cfg_mixed = t_stress_scene(100, mixed=True, device=CPU)
+    assert cfg_mixed.shape_mode == "mixed" and not cfg_mixed.fused_iso

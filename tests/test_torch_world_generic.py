@@ -5,6 +5,10 @@ and the cold reference-schedule pile (bench.py's ``stress_cold20`` row:
 ``pallas_narrowphase=True`` (kernel K2; its plain version on the CPU, the
 Pallas kernel in interpret mode on the JAX side).
 
+The demo state is also stepped with warm starting on (the search match at
+16 + 4 rows, ``demo_warm``) and with ``use_grid=False`` (all-pairs
+candidates, ``demo_allpairs``).
+
 A JAX state crosses the numpy bridge and one port step is compared with one
 JAX step.  Tolerances and their reasons:
 
@@ -34,6 +38,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from mgf_tpu.scenes import balls_scene as j_balls_scene  # noqa: E402
 from mgf_tpu.scenes import stress_scene as j_stress_scene  # noqa: E402
+from mgf_tpu.world import init_warm as j_init_warm  # noqa: E402
 from mgf_tpu.world import step as j_step  # noqa: E402
 
 from mgf_tpu_torch import world_from_numpy, world_to_numpy  # noqa: E402
@@ -74,6 +79,15 @@ def jax_states():
     for _ in range(150):
         w, _ = f(w)
     out["demo"] = (w, cfg)
+    # warm starting on the generic branch: two warm JAX steps fill the
+    # accumulators, so the compared step matches non-trivial rows
+    wcfg = cfg._replace(warm_start=True)
+    fw = jax.jit(functools.partial(j_step, cfg=wcfg))
+    ww = j_init_warm(w, wcfg)
+    for _ in range(2):
+        ww, _ = fw(ww)
+    out["demo_warm"] = (ww, wcfg)
+    out["demo_allpairs"] = (w, cfg._replace(use_grid=False))
     w, cfg = j_stress_scene(800)
     cfg = cold_cfg(cfg)
     w = w._replace(warm=None)
@@ -107,8 +121,9 @@ def _assert_stream(js, ts, approach, min_valid):
     assert (dt[~fast] * s[~fast] <= 1e-6).all()
 
 
-@pytest.mark.parametrize("scene,min_pair,min_ter", [("demo", 200, 30),
-                                                    ("cold", 2000, 100)])
+@pytest.mark.parametrize("scene,min_pair,min_ter", [
+    ("demo", 200, 30), ("cold", 2000, 100), ("demo_warm", 200, 30),
+    ("demo_allpairs", 200, 30)])
 def test_one_step_matches_jax(jax_states, scene, min_pair, min_ter):
     jw, cfg = jax_states[scene]
     fc = jax.jit(functools.partial(j_step, cfg=cfg, collect_contacts=True))
@@ -142,7 +157,20 @@ def test_one_step_matches_jax(jax_states, scene, min_pair, min_ter):
     for f in ("x", "q", "delta"):
         for a, b in zip(getattr(jw2.bodies, f), getattr(tw2.bodies, f)):
             np.testing.assert_allclose(a, b, atol=1e-6, rtol=0, err_msg=f)
-    assert tw2.warm is None
+    if scene == "demo_warm":
+        # the search match found last step's rows; keys exactly, the
+        # accumulators on live rows
+        assert float(tm["warm_hit_frac"]) > 0.5
+        for f in ("partner", "key2"):
+            np.testing.assert_array_equal(getattr(jw2.warm, f),
+                                          getattr(tw2.warm, f), err_msg=f)
+        live = jw2.warm.partner != -9
+        for f in ("acc_n", "acc_t1", "acc_t2"):
+            np.testing.assert_allclose(getattr(jw2.warm, f)[live],
+                                       getattr(tw2.warm, f)[live],
+                                       atol=2e-4, rtol=1e-4, err_msg=f)
+    else:
+        assert tw2.warm is None
     if scene == "cold":
         # the cached fat grid: indices exactly, anchors to rounding
         for f in ("partner", "ok", "overflow", "count"):
@@ -301,9 +329,7 @@ def test_balls_contact_stream_parity():
 
 def test_generic_off_slice_configs_raise():
     world, cfg = t_balls_scene(2, device=CPU)
-    for bad in (cfg._replace(warm_start=True),
-                cfg._replace(solver_rows=8),
-                cfg._replace(use_grid=False),
+    for bad in (cfg._replace(solver_rows=8),
                 cfg._replace(broadphase="fat8x4"),
                 cfg._replace(bp_margin=0.5),
                 cfg._replace(terrain_bp="grid"),
