@@ -1,6 +1,7 @@
 """Smoke run of mgf_tpu_torch on one NVIDIA GPU: build the kernels, check
 them, drive the flagship path, the generic sphere branch, the mixed
-sphere/capsule pile and the capsules demo, and check what comes out.
+sphere/capsule pile, the capsules demo, the reference's flat solvers and
+the heightfield terrain scene, and check what comes out.
 
     python3 chip_smoke.py
 
@@ -26,7 +27,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    checked and K1's launch count held to the solver's outer iterations
    (one gather-mode launch per outer iteration)
    (every kernel's count is set to 0 before each path, [4], [7], [8],
-   [11] and [13], and read after it; the kernels line sums them);
+   [11], [13], [15], [16] and [17], and read after it; the kernels line
+   sums them);
 5. kernel path against plain path end to end: an 8,000-body pile stepped
    40 steps on the card, copied to the CPU, then one more step on each;
 6. K2 against its plain version at P = 900,000 pairs (the cold pile's 9
@@ -70,7 +72,44 @@ Phases (each prints one line; any failure raises and exits non-zero):
     two-phase sweeps) stepped 280 steps: finite state, overflow 0,
     contacts, and the count of capsules at rest inside the box beside the
     count that missed it and go on falling, as in the reference demo;
-14. a JSON line of per-kernel results, then the result line.
+14. K4 (the sequential Gauss-Seidel solve, one CUDA block) against its
+    plain PyTorch version on the card, on the constraint list of the
+    126-body balls_scene(5) landing step, 20 sweeps, both friction modes
+    (atol 1e-4, rtol 1e-5); K4 timed there (mgf friction) and, after
+    [15], at the full demo's list (its mgf friction), with the bound of
+    the mode timed; there it is also held against the plain version run on
+    CPU copies of the inputs (on the card the plain version makes ~60
+    launches per point update, ~3 M per solve at the demo's size: it is
+    timed at the small size only);
+15. the demo on the reference's sequential solver: balls_scene(11,
+    solver="sequential") with the raw-lambda friction and K2 on, 280 steps:
+    steps/s over the last 80, contacts, max penetration at the last step,
+    the overflow series, K4 and K2 launches (one each per step); finite
+    state, no body out of the demo box (floor y = -10, walls |x|, |z| = 10);
+    the overflow and penetration guards at what mgf_tpu's own sequential
+    demo meets on the CPU (scripts/mixed_reference_guards.py --balls): at
+    most 32 bodies in a step of steps 1-200 and none later, max
+    penetration < 1.0 at the last step (mgf_tpu 0.8417);
+16. the same demo on the mass-split parallel solver (the demo's textbook
+    friction), 280 steps, the same prints and guards at mgf_tpu's parallel
+    run (at most 96 bodies, max penetration < 1.0; mgf_tpu 0.8417); K4
+    launches 0;
+17. terrain_scene() at its defaults: 10,000 spheres and capsules (a quarter
+    capsules) raining onto the 10,368-face heightfield (face grid dim 64,
+    cap 16; solver_rows 14), 240 steps from scratch (the rain reaches the
+    heightfield after ~160): steps/s over steps 161-240, contacts by class
+    at the last step, max penetration, solver_rows_dropped, the face grid's
+    overflow (from a rebuild checked equal to the face table the step
+    reads) and terrain_reach_excess; finite state, overflow 0,
+    terrain_reach_excess 0 on every step, no body below y = -4 or above its
+    start, terrain contacts > 0, max penetration < 0.8 at the last step
+    (tests/test_terrain.py's bar; mgf_tpu meets it at 2,000 and 10,000
+    bodies, scripts/mixed_reference_guards.py --terrain), and no launch of
+    K1-K4 (this path runs no hand-written kernel, as in the JAX package);
+18. the terrain step on the card against the CPU: terrain_scene(2_000)
+    after 100 card steps (the rain on the heightfield), one more step on
+    each: equal contact counts per class, v within 1e-5, omega within 1e-4;
+19. a JSON line of per-kernel results, then the result line.
 
 Needs a CUDA card; it exits non-zero without one, and imports no JAX.
 """
@@ -104,6 +143,23 @@ K1_OPS_PER_ROW_SWEEP = 83     # dv, friction, normal, impulse, sums
 K1_OPS_PER_COL_SWEEP = 12     # the velocity update
 K1_OPS_PER_GATHER_ROW = 12    # gather mode: vb + wb x rb, once per call
 K2_OPS_PER_PAIR = 170
+# one point update of sequential_solve.cu by friction mode: 220 float32
+# operations in both (two relative velocities, the normal impulse, four
+# impulse applications with a Mat3 product each), then the raw lambda's 2
+# adds ("mgf") or the clamp's mul, 2 x (add, max, min) and 2 subs
+# ("textbook"); a negation folds into its consumer's operand and is not
+# counted
+K4_OPS_PER_UPDATE = {"mgf": 222, "textbook": 229}
+K4_TOL = dict(atol=1e-4, rtol=1e-5)
+N_TERRAIN = 10_000            # terrain_scene's default rain
+N_TERRAIN_E2E = 2_000
+# the demos on the flat solvers, at what mgf_tpu's own runs of the same
+# 280 steps meet on the CPU (scripts/mixed_reference_guards.py --balls
+# sequential|parallel): bucket overflow in its worst step of steps 1-200
+# (none later) and max penetration at the last step (0.8417 for both; the
+# peaks 0.9671 at step 170 and 0.9761 at step 179)
+FLAT_OVERFLOW_LANDING = {"sequential": 32, "parallel": 96}
+FLAT_PEN_LAST = {"sequential": 1.0, "parallel": 1.0}
 
 
 def bound(n_bytes, n_ops):
@@ -126,15 +182,23 @@ def sweep_bound(R, N, inner, K=None):
     return bound(n_bytes, n_ops)
 
 
-def _zero_counts(ss, nph):
-    torch.cuda.synchronize()
-    ss.LAUNCHES = ss.BLOCKMAJOR_LAUNCHES = nph.LAUNCHES = 0
+def _launch_counters():
+    """(kernel, module, attribute) of each kernel's launch count."""
+    from mgf_tpu_torch.ops import narrowphase, sequential_solve, solver_sweep
+    return (("K1", solver_sweep, "LAUNCHES"), ("K2", narrowphase, "LAUNCHES"),
+            ("K3", solver_sweep, "BLOCKMAJOR_LAUNCHES"),
+            ("K4", sequential_solve, "LAUNCHES"))
 
 
-def _counts(ss, nph):
+def _zero_counts():
     torch.cuda.synchronize()
-    return {"K1": ss.LAUNCHES, "K2": nph.LAUNCHES,
-            "K3": ss.BLOCKMAJOR_LAUNCHES}
+    for _, mod, attr in _launch_counters():
+        setattr(mod, attr, 0)
+
+
+def _counts():
+    torch.cuda.synchronize()
+    return {k: getattr(mod, attr) for k, mod, attr in _launch_counters()}
 
 
 def check(cond, msg):
@@ -282,7 +346,7 @@ def phase_kernel(ss, dev):
     return out
 
 
-def phase_main_path(ss, nph, dev):
+def phase_main_path(dev):
     from mgf_tpu_torch.driver import AdaptiveChunkStepper
     from mgf_tpu_torch.scenes import stress_scene
     world, cfg = stress_scene(N_MAIN, device=dev)
@@ -292,7 +356,7 @@ def phase_main_path(ss, nph, dev):
     expected = 0
     chunk_s, last, rebuilds = [], None, 0
     overflow, drift = 0, 0.0
-    _zero_counts(ss, nph)
+    _zero_counts()
     for _ in range(n_chunks):
         t0 = time.perf_counter()
         world, m = st.step_chunk(world)
@@ -303,7 +367,7 @@ def phase_main_path(ss, nph, dev):
         overflow = max(overflow, int(m["broadphase_overflow"].max()))
         drift = max(drift, float(m["broadphase_cache_drift_excess"].max()))
         last = {k: v[-1] for k, v in m.items()}
-    counts = _counts(ss, nph)
+    counts = _counts()
     launches = counts["K1"]
     b = world.bodies
     finite = all(bool(torch.isfinite(c).all())
@@ -429,7 +493,7 @@ def _run_chunks(run, world, n_chunks, chunk):
     return world, chunk_s, rebuilds, overflow, drift, last
 
 
-def phase_cold_path(ss, nph, dev):
+def phase_cold_path(dev):
     from mgf_tpu_torch.driver import make_chunk_step
     from mgf_tpu_torch.scenes import stress_scene
     world, cfg = stress_scene(N_MAIN, device=dev)
@@ -439,10 +503,10 @@ def phase_cold_path(ss, nph, dev):
                        pallas_narrowphase=True)
     world = world._replace(warm=None)
     chunk, n_chunks = 16, 4
-    _zero_counts(ss, nph)
+    _zero_counts()
     world, chunk_s, rebuilds, overflow, drift, last = _run_chunks(
         make_chunk_step(cfg, light=True), world, n_chunks, chunk)
-    counts = _counts(ss, nph)
+    counts = _counts()
     launches = counts["K2"]
     overflow = max(overflow)
     steps = chunk * n_chunks
@@ -463,16 +527,16 @@ def phase_cold_path(ss, nph, dev):
     return counts
 
 
-def phase_demo(ss, nph, dev):
+def phase_demo(dev):
     from mgf_tpu_torch.driver import make_chunk_step
     from mgf_tpu_torch.scenes import balls_scene
     world, cfg = balls_scene(11, device=dev)
     cfg = cfg._replace(pallas_narrowphase=True)
     chunk, n_chunks = 20, 14
-    _zero_counts(ss, nph)
+    _zero_counts()
     world, chunk_s, rebuilds, overflow, drift, last = _run_chunks(
         make_chunk_step(cfg, light=True), world, n_chunks, chunk)
-    counts = _counts(ss, nph)
+    counts = _counts()
     launches = counts["K2"]
     steps = chunk * n_chunks
     landing, settling = max(overflow[:200]), max(overflow[200:])
@@ -567,16 +631,16 @@ def phase_k3(ss, dev):
     return out
 
 
-def _escaped(world):
-    """Bodies below y = -1 or outside the scene's walls (the terrain's x/z
-    extent)."""
+def _escaped(world, floor=-1.0):
+    """Bodies below y = ``floor`` or outside the scene's walls (the
+    terrain's x/z extent)."""
     b, t = world.bodies, world.terrain
     wall = max(float(c.abs().max()) for v in t for c in (v.x, v.z))
-    out = (b.x.y < -1.0) | (b.x.x.abs() > wall) | (b.x.z.abs() > wall)
+    out = (b.x.y < floor) | (b.x.x.abs() > wall) | (b.x.z.abs() > wall)
     return int(out.sum())
 
 
-def phase_mixed_path(ss, nph, dev):
+def phase_mixed_path(dev):
     from mgf_tpu_torch.driver import AdaptiveChunkStepper
     from mgf_tpu_torch.scenes import stress_scene
     world, cfg = stress_scene(N_MAIN, mixed=True, device=dev)
@@ -584,10 +648,10 @@ def phase_mixed_path(ss, nph, dev):
     n_sph = world.bodies.n_bodies - n_caps
     chunk, n_chunks = 16, 8
     st = AdaptiveChunkStepper(cfg, chunk=chunk, light=True)
-    _zero_counts(ss, nph)
+    _zero_counts()
     world, chunk_s, rebuilds, overflow, drift, last = _run_chunks(
         lambda w, _ones: st.step_chunk(w), world, n_chunks, chunk)
-    counts = _counts(ss, nph)
+    counts = _counts()
     overflow = max(overflow)
     steps = chunk * n_chunks
     sps_late = chunk * (n_chunks - 2) / sum(chunk_s[2:])
@@ -655,15 +719,15 @@ def phase_mixed_card_vs_cpu(dev):
     check(max(err.values()) <= 1e-4, f"mixed v/omega differ by {err}")
 
 
-def phase_capsules_demo(ss, nph, dev):
+def phase_capsules_demo(dev):
     from mgf_tpu_torch.driver import make_chunk_step
     from mgf_tpu_torch.scenes import capsules_scene
     world, cfg = capsules_scene(11, device=dev)
     chunk, n_chunks = 20, 14
-    _zero_counts(ss, nph)
+    _zero_counts()
     world, chunk_s, _, overflow, _, last = _run_chunks(
         make_chunk_step(cfg, light=True), world, n_chunks, chunk)
-    counts = _counts(ss, nph)
+    counts = _counts()
     steps = chunk * n_chunks
     b = world.bodies
     inside = ((b.x.x.abs() < 10.0) & (b.x.z.abs() < 10.0) & (b.x.y > -10.0))
@@ -689,6 +753,256 @@ def phase_capsules_demo(ss, nph, dev):
     return counts
 
 
+def k4_bound(inp, iters, mgf):
+    """K4's (bound_ms, bound_by) in the friction mode ``mgf`` names: the
+    valid flags, the valid points' rows and body indices and the body table
+    read once, v and omega written once; iters x valid points x the
+    update's float32 operations.  Neither is what limits K4: its sweeps are
+    one chain of dependent updates."""
+    C, M = inp["valid"].numel(), inp["bodies"].shape[0]
+    nv = int(inp["valid"].sum())
+    n_bytes = C + nv * (4 * 20 + 8) + M * 4 * 16 + M * 4 * 6
+    ops = K4_OPS_PER_UPDATE["mgf" if mgf else "textbook"]
+    return bound(n_bytes, iters * nv * ops)
+
+
+def _record_sequential(seq, world, cfg):
+    """K4's inputs in one sequential step of ``world``."""
+    from mgf_tpu_torch.world import step
+    return seq.capture_inputs(
+        lambda: step(world, cfg._replace(solver="sequential")))[0]
+
+
+def _k4_run(seq, inp, iters, mgf, plain=False):
+    fn = seq.sequential_solve_reference if plain else seq.sequential_solve
+    return fn(inp["pts"], inp["a"], inp["b"], inp["valid"], inp["bodies"],
+              iters, mgf)
+
+
+def _vw_err(a, b):
+    a, b = a.cpu(), b.cpu()
+    return (float((a[:, :3] - b[:, :3]).abs().max()),
+            float((a[:, 3:6] - b[:, 3:6]).abs().max()))
+
+
+def phase_k4_small(seq, dev):
+    """[14] K4 against its plain version on the card at the 126-body
+    landing step (the parallel solver brings the demo there, so the inputs
+    do not depend on K4)."""
+    from mgf_tpu_torch import world as tworld
+    from mgf_tpu_torch.scenes import balls_scene
+    world, cfg = balls_scene(5, device=dev)
+    par = cfg._replace(solver="parallel")
+    for _ in range(141):        # the block lands: 117 valid points, 45 m/s
+        world, _ = tworld.step(world, par)
+    inp = _record_sequential(seq, world, cfg)
+    iters, nv = 20, int(inp["valid"].sum())
+    err = 0.0
+    for mgf in (False, True):
+        out_k = _k4_run(seq, inp, iters, mgf)
+        out_p = _k4_run(seq, inp, iters, mgf, plain=True)
+        torch.cuda.synchronize()
+        ev, ew = _vw_err(out_k, out_p)
+        err = max(err, ev, ew)
+        print(f"[14] K4 vs plain on the card, balls_scene(5) landing "
+              f"({inp['bodies'].shape[0]} body rows, "
+              f"{inp['valid'].numel()} points, {nv} valid), {iters} sweeps, "
+              f"friction {'mgf' if mgf else 'textbook'}: max |dv| {ev:.3g}, "
+              f"|domega| {ew:.3g} (atol 1e-4, rtol 1e-5)", flush=True)
+        torch.testing.assert_close(out_k, out_p, **K4_TOL)
+        check(float((out_k[:, :3] - inp["bodies"][:, :3]).abs().max())
+              > 0.1, "K4: the landing solve moved nothing")
+    ms = _time_ms(lambda: _k4_run(seq, inp, iters, True))
+    # the plain version: ~60 launches per point update, host-bound
+    plain_ms = _time_ms(lambda: _k4_run(seq, inp, iters, True, plain=True),
+                        reps=1, blocks=3)
+    b_ms, b_by = k4_bound(inp, iters, True)
+    print(f"[14] K4 at the landing, friction mgf: kernel {ms}, "
+          f"{1e6 * ms / (iters * nv):.1f} ns per valid point-update; plain "
+          f"{plain_ms} (1 call a block: ~60 small launches per point "
+          f"update); bound {b_ms:.6f} ms "
+          f"({b_by})", flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def phase_k4_demo(seq, k4, world, cfg):
+    """[14], continued: K4 at the full demo's constraint list (one more
+    sequential step from the state [15] ends in), timed, and held against
+    the plain version on CPU copies of the inputs."""
+    inp = _record_sequential(seq, world, cfg)
+    iters, mgf = inp["iters"], inp["mgf"]
+    nv = int(inp["valid"].sum())
+    out_k = _k4_run(seq, inp, iters, mgf)
+    cpu = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in inp.items()}
+    out_p = _k4_run(seq, cpu, iters, mgf, plain=True)
+    ev, ew = _vw_err(out_k, out_p)
+    torch.testing.assert_close(out_k.cpu(), out_p, **K4_TOL)
+    ms = _time_ms(lambda: _k4_run(seq, inp, iters, mgf), reps=5)
+    b_ms, b_by = k4_bound(inp, iters, mgf)
+    print(f"[14] K4 at the demo's list after [15] "
+          f"({inp['bodies'].shape[0]} body rows, {inp['valid'].numel()} "
+          f"points, {nv} valid, {iters} sweeps, friction "
+          f"{'mgf' if mgf else 'textbook'}): kernel {ms}, "
+          f"{1e6 * ms / (iters * max(nv, 1)):.1f} ns per valid point-update; vs "
+          f"plain on the CPU max |dv| {ev:.3g}, |domega| {ew:.3g} (atol "
+          f"1e-4, rtol 1e-5); bound {b_ms:.6f} ms ({b_by})", flush=True)
+    return dict(k4, err=max(k4["err"], ev, ew), ms=ms, bound_ms=b_ms,
+                bound_by=b_by, n_valid=nv)
+
+
+def phase_flat_demo(dev, solver):
+    """[15] / [16] the demo on a flat solver, 280 steps from scratch."""
+    from mgf_tpu_torch.driver import make_chunk_step
+    from mgf_tpu_torch.scenes import balls_scene
+    tag = "[15]" if solver == "sequential" else "[16]"
+    world, cfg = balls_scene(11, solver=solver, device=dev)
+    cfg = cfg._replace(pallas_narrowphase=True)
+    if solver == "sequential":
+        cfg = cfg._replace(friction_mode="mgf")
+    chunk, n_chunks = 20, 14
+    _zero_counts()
+    world, chunk_s, _, overflow, _, last = _run_chunks(
+        make_chunk_step(cfg, light=True), world, n_chunks, chunk)
+    counts = _counts()
+    steps = chunk * n_chunks
+    landing, settling = max(overflow[:200]), max(overflow[200:])
+    contacts = int(last["num_contacts"])
+    pen = float(last["max_penetration"])
+    out = _escaped(world, floor=-10.0)
+    sps = 4 * chunk / sum(chunk_s[-4:])
+    want_k4 = steps if solver == "sequential" else 0
+    print(f"{tag} demo balls_scene(11, solver={solver!r}, friction_mode="
+          f"{cfg.friction_mode!r}) ({world.bodies.n_bodies} bodies) {steps} "
+          f"steps: {sps:.2f} steps/s over the last {4 * chunk} "
+          f"({steps / sum(chunk_s):.2f} over all), contacts {contacts}, max "
+          f"penetration at the last step {pen:.4f} (limit "
+          f"{FLAT_PEN_LAST[solver]}), "
+          f"overflow worst step {landing} in steps 1-200 (limit "
+          f"{FLAT_OVERFLOW_LANDING[solver]}), {settling} in 201-{steps}, on "
+          f"{sum(o > 0 for o in overflow)} steps; out of the box {out}; "
+          f"lowest y {float(world.bodies.x.y.min()):.4f}; kernel launches "
+          f"{counts} (K2 expected {steps}, K4 {want_k4})", flush=True)
+    check(_finite(world), f"{solver} demo: non-finite x, v or omega")
+    check(out == 0, f"{solver} demo: {out} bodies out of the box")
+    check(landing <= FLAT_OVERFLOW_LANDING[solver],
+          f"{solver} demo: broadphase overflow {landing} while landing")
+    check(settling == 0, f"{solver} demo: overflow {settling} after step 200")
+    check(contacts > 0, f"{solver} demo: no contacts")
+    check(pen < FLAT_PEN_LAST[solver],
+          f"{solver} demo: max penetration {pen}")
+    check(counts["K2"] == steps and counts["K4"] == want_k4
+          and counts["K1"] == counts["K3"] == 0,
+          f"{solver} demo: kernel launches {counts}")
+    return world, cfg, counts
+
+
+def _terrain_grid_overflow(world, cfg):
+    """The face grid's dropped insertions, from a build over the world's
+    triangles with the scene's grid settings that is checked to give the
+    very face table the step reads (``world.terrain_grid``'s id block)."""
+    from mgf_tpu_torch.mesh import build_mesh_grid, mesh_from_arrays
+    tri = world.terrain
+    corners = [torch.stack(list(p), -1).cpu().numpy()
+               for p in (tri.a, tri.b, tri.c)]
+    T = corners[0].shape[0]
+    faces = np.stack([np.arange(T), T + np.arange(T), 2 * T + np.arange(T)],
+                     -1)
+    tg = cfg.terrain_grid_cfg
+    mg = build_mesh_grid(mesh_from_arrays(np.concatenate(corners), faces,
+                                          device=tri.a.x.device),
+                         tg.cell_size, tg.dim, tg.bucket_cap)
+    check(torch.equal(mg.table.float(),
+                      world.terrain_grid[:, :tg.bucket_cap]),
+          "terrain: the rebuilt face grid is not the step's face table")
+    return int(mg.overflow), T
+
+
+def phase_terrain(dev):
+    """[17] terrain_scene() at its defaults, 240 steps from scratch."""
+    from mgf_tpu_torch.driver import make_chunk_step
+    from mgf_tpu_torch.scenes import terrain_scene
+    from mgf_tpu_torch.world import step
+    world, cfg = terrain_scene(N_TERRAIN, device=dev)
+    grid_over, n_faces = _terrain_grid_overflow(world, cfg)
+    y0 = world.bodies.x.y.clone()
+    chunk, n_chunks = 20, 12
+    run = make_chunk_step(cfg, light=True)
+    chunk_s, overflow, excess = [], [], []
+    _zero_counts()
+    for k in range(n_chunks):
+        # the last chunk ends in a step that returns the contact streams
+        n = chunk - 1 if k == n_chunks - 1 else chunk
+        t0 = time.perf_counter()
+        world, m = run(world, torch.ones((n,), device=dev))
+        overflow += m["broadphase_overflow"].tolist()
+        excess += m["terrain_reach_excess"].tolist()
+        if n < chunk:
+            world, last = step(world, cfg, collect_contacts=True)
+            overflow.append(int(last["broadphase_overflow"]))
+            excess.append(float(last["terrain_reach_excess"]))
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+    counts = _counts()
+    steps = chunk * n_chunks
+    classes = _class_counts(last, cfg.n_sphere_rows)
+    pen = float(last["max_penetration"])
+    dropped = int(last["solver_rows_dropped"])
+    y = world.bodies.x.y
+    y_min, rise = float(y.min()), float((y - y0).max())
+    print(f"[17] terrain_scene({N_TERRAIN}) ({cfg.n_sphere_rows} spheres, "
+          f"{N_TERRAIN - cfg.n_sphere_rows} capsules, {n_faces} faces) "
+          f"{steps} steps: {4 * chunk / sum(chunk_s[-4:]):.2f} steps/s over "
+          f"steps 161-{steps} ({steps / sum(chunk_s):.2f} over all), "
+          f"contacts {int(last['num_contacts'])}, by class {classes}, max "
+          f"penetration at the last step {pen:.4f} (limit 0.8), "
+          f"solver_rows_dropped {dropped}, face grid overflow {grid_over}, "
+          f"broadphase overflow worst step {max(overflow)}, "
+          f"terrain_reach_excess worst {max(excess)}, lowest y {y_min:.4f}, "
+          f"largest rise over the start {rise:.4f}; kernel launches "
+          f"{counts}", flush=True)
+    check(_finite(world), "terrain: non-finite x, v or omega")
+    check(grid_over == 0, f"terrain: face grid overflow {grid_over}")
+    check(len(excess) == steps and max(excess) == 0.0,
+          f"terrain: terrain_reach_excess {max(excess)}")
+    check(y_min > -4.0, f"terrain: a body below y = -4 ({y_min})")
+    check(rise <= 0.0, f"terrain: a body rose {rise} over its start")
+    check(classes["terrain"] > 0, "terrain: no terrain contacts")
+    check(pen < 0.8, f"terrain: max penetration {pen}")
+    check(not any(counts.values()),
+          f"terrain launched a hand-written kernel: {counts}")
+    return counts
+
+
+def phase_terrain_card_vs_cpu(dev):
+    """[18] one terrain step on the card against the CPU."""
+    from mgf_tpu_torch import world_from_numpy, world_to_numpy
+    from mgf_tpu_torch.scenes import terrain_scene
+    from mgf_tpu_torch.world import step
+    world, cfg = terrain_scene(N_TERRAIN_E2E, device=dev)
+    for _ in range(100):
+        world, _ = step(world, cfg)
+    w_cpu = world_from_numpy(world_to_numpy(world), "cpu")
+    w_g, m_g = step(world, cfg, collect_contacts=True)
+    w_c, m_c = step(w_cpu, cfg, collect_contacts=True)
+    c_g = _class_counts(m_g, cfg.n_sphere_rows)
+    c_c = _class_counts(m_c, cfg.n_sphere_rows)
+    err = {f: max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(getattr(w_g.bodies, f),
+                                  getattr(w_c.bodies, f)))
+           for f in ("v", "omega")}
+    print(f"[18] terrain_scene({N_TERRAIN_E2E}) after 100 card steps, one "
+          f"more step: contacts by class card {c_g} / cpu {c_c}; "
+          f"solver_rows_dropped {int(m_g['solver_rows_dropped'])} / "
+          f"{int(m_c['solver_rows_dropped'])}; max |dv| {err['v']:.3g} "
+          f"(atol 1e-5), max |domega| {err['omega']:.3g} (atol 1e-4)",
+          flush=True)
+    check(c_g == c_c, f"terrain contact counts {c_g} vs {c_c}")
+    check(c_c["terrain"] > 0, f"terrain: no terrain contacts {c_c}")
+    check(err["v"] <= 1e-5 and err["omega"] <= 1e-4,
+          f"terrain v/omega differ by {err}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -696,6 +1010,7 @@ def main():
         return 1
     from mgf_tpu_torch.ops import _build
     from mgf_tpu_torch.ops import narrowphase as nph
+    from mgf_tpu_torch.ops import sequential_solve as seq
     from mgf_tpu_torch.ops import solver_sweep as ss
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -712,17 +1027,25 @@ def main():
     print(f"[2] kernels built in {wall_s:.2f} s wall, one nvcc per source "
           f"in parallel ({per_src})", flush=True)
     k1 = phase_kernel(ss, dev)
-    paths = [phase_main_path(ss, nph, dev)]
+    paths = [phase_main_path(dev)]
     phase_end_to_end(dev)
     k2 = phase_k2(nph, dev)
-    paths.append(phase_cold_path(ss, nph, dev))
-    demo, demo_cfg, demo_counts = phase_demo(ss, nph, dev)
+    paths.append(phase_cold_path(dev))
+    demo, demo_cfg, demo_counts = phase_demo(dev)
     paths.append(demo_counts)
     phase_demo_card_vs_cpu(demo, demo_cfg)
     k3 = phase_k3(ss, dev)
-    paths.append(phase_mixed_path(ss, nph, dev))
+    paths.append(phase_mixed_path(dev))
     phase_mixed_card_vs_cpu(dev)
-    paths.append(phase_capsules_demo(ss, nph, dev))
+    paths.append(phase_capsules_demo(dev))
+    k4 = phase_k4_small(seq, dev)
+    seq_demo, seq_cfg, seq_counts = phase_flat_demo(dev,
+                                                    "sequential")
+    paths.append(seq_counts)
+    k4 = phase_k4_demo(seq, k4, seq_demo, seq_cfg)
+    paths.append(phase_flat_demo(dev, "parallel")[2])
+    paths.append(phase_terrain(dev))
+    phase_terrain_card_vs_cpu(dev)
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
     def row(name, source, replaces, n, r):
@@ -732,10 +1055,12 @@ def main():
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None}
 
-    # no single PyTorch call computes K1, K2 or K3: library_ms is null.
-    # launches: each kernel's count summed over the paths ([4], [7], [8];
-    # [11] and [13] launch none).  K1 in gather mode at the main path's settled shape (inner 6);
-    # K2 at the cold pile's 900,000 pairs; K3 at block 1024, inner 8
+    # no single PyTorch call computes K1, K2, K3 or K4: library_ms is null.
+    # launches: each kernel's count summed over the paths ([4], [7], [8],
+    # [15], [16]; [11], [13] and [17] launch none).  K1 in gather mode at
+    # the main path's settled shape (inner 6); K2 at the cold pile's
+    # 900,000 pairs; K3 at block 1024, inner 8; K4 at the full demo's
+    # constraint list (ms, bound) with plain_ms at the 126-body landing
     print(json.dumps({"kernels": [
         row("solver_sweep.inner_sweeps",
             "mgf_tpu_torch/ops/csrc/solver_sweep.cu",
@@ -749,6 +1074,10 @@ def main():
             "mgf_tpu_torch/ops/csrc/solver_sweep.cu",
             "scripts/micro_sweep.py:61", launches["K3"],
             dict(k3[(1024, 8)], err=max(v["err"] for v in k3.values()))),
+        row("sequential_solve.sequential_solve",
+            "mgf_tpu_torch/ops/csrc/sequential_solve.cu",
+            "mgf_tpu/solver.py:192 (lax.scan; no Pallas twin)",
+            launches["K4"], k4),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

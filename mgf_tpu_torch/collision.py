@@ -1,4 +1,5 @@
-"""Continuous narrowphase for spheres and capsules, branch-free on tensors.
+"""Continuous narrowphase for spheres and capsules against each other and
+against planes, triangles and rectangles, branch-free on tensors.
 
 Counterpart of the sphere and capsule part of ``mgf_tpu.collision``
 (reference: collision.rs).  Every routine evaluates all of its cases and
@@ -16,8 +17,9 @@ from typing import Callable, NamedTuple
 import torch
 
 from mgf_tpu_torch.geom import (
-    Capsule, Plane, Segment, Sphere, Triangle, TRIANGLE_EDGES,
-    closest_pt_segment, closest_pts_seg, plane_from_triangle,
+    RECTANGLE_EDGES, TRIANGLE_EDGES, Capsule, Plane, Rectangle, Segment,
+    Sphere, Triangle, closest_pt_segment, closest_pts_seg,
+    plane_from_rectangle, plane_from_triangle, rectangle_vertices,
     segment_of_capsule, triangle_vertices,
 )
 from mgf_tpu_torch.math3d import (
@@ -109,6 +111,21 @@ def contains_triangle_pt(t: Triangle, pt: Vec3):
     u = safe_div(d4 * d3 - d2 * d5, denom)
     w = safe_div(d1 * d5 - d2 * d3, denom)
     return (u >= 0.0) & (w >= 0.0) & ((u + w) < 1.0)
+
+
+def _approx_eq(a, b, eps=COLLISION_EPSILON):
+    """cgmath relative_eq!: absolute OR relative epsilon check."""
+    diff = torch.abs(a - b)
+    return (diff <= eps) | (diff <= eps * torch.maximum(torch.abs(a),
+                                                        torch.abs(b)))
+
+
+def contains_rectangle_pt(r: Rectangle, pt: Vec3):
+    """collision.rs:102-111."""
+    n = cross(r.u0, r.u1)
+    on_plane = _approx_eq(dot(pt, n), dot(n, r.c))
+    return (on_plane & (torch.abs(dot(pt, r.u0)) <= r.e0)
+            & (torch.abs(dot(pt, r.u1)) <= r.e1))
 
 
 def intersect_plane(pos: Vec3, d: Vec3, dt, plane: Plane) -> Intersection:
@@ -384,19 +401,17 @@ def contact_capsule_moving_capsule(c1: Capsule, c2: Capsule,
     return contact_stack_bcast([slot0, slot1])
 
 
-def contact_triangle_moving_sphere(tri: Triangle, s: Sphere,
-                                   v: Vec3) -> Contact:
-    """Triangle vs swept sphere: face first, then the earliest edge hit
-    (collision.rs:610-659, the polygon routine on a triangle)."""
-    plane = plane_from_triangle(tri)
+def _contact_polygon_moving_sphere(plane: Plane, verts, edges, contains_fn,
+                                   s: Sphere, v: Vec3) -> Contact:
+    """Polygon vs swept sphere: face first, then the earliest edge hit
+    (collision.rs:610-659)."""
     pc = contact_plane_moving_sphere(plane, s, v)
-    on_face = pc.valid & contains_triangle_pt(tri, pc.a)
+    on_face = pc.valid & contains_fn(pc.a)
 
-    verts = triangle_vertices(tri)
     moving = magnitude2(v) != 0.0
     first_t = torch.full_like(pc.t, _INF)
     tri_p = vzeros_like(s.c)
-    for (ia, ib) in TRIANGLE_EDGES:
+    for (ia, ib) in edges:
         v1 = verts[ia]
         v2 = verts[ib]
         inter = intersect_capsule(s.c, v, _INF,
@@ -408,6 +423,20 @@ def contact_triangle_moving_sphere(tri: Triangle, s: Sphere,
     edge_hit = pc.valid & moving & (first_t < _INF)
     c_edge = Contact(a=tri_p, b=tri_p, n=plane.n, t=first_t, valid=edge_hit)
     return contact_select(on_face, pc, c_edge)
+
+
+def contact_triangle_moving_sphere(tri: Triangle, s: Sphere,
+                                   v: Vec3) -> Contact:
+    return _contact_polygon_moving_sphere(
+        plane_from_triangle(tri), triangle_vertices(tri), TRIANGLE_EDGES,
+        lambda p: contains_triangle_pt(tri, p), s, v)
+
+
+def contact_rectangle_moving_sphere(rect: Rectangle, s: Sphere,
+                                    v: Vec3) -> Contact:
+    return _contact_polygon_moving_sphere(
+        plane_from_rectangle(rect), rectangle_vertices(rect),
+        RECTANGLE_EDGES, lambda p: contains_rectangle_pt(rect, p), s, v)
 
 
 def _signed_2d_tri_area(ax, ay, bx, by, cx, cy):
@@ -710,10 +739,25 @@ def contact_triangle_moving_capsule(tri: Triangle, cap: Capsule,
         lambda p: contains_triangle_pt(tri, p), cap, v)
 
 
+def contact_rectangle_moving_capsule(rect: Rectangle, cap: Capsule,
+                                     v: Vec3) -> Contact:
+    """Rectangle x Moving<Capsule>. 2 contact slots."""
+    return _contact_polygon_moving_capsule(
+        plane_from_rectangle(rect), rectangle_vertices(rect),
+        RECTANGLE_EDGES, lambda p: contains_rectangle_pt(rect, p), cap, v)
+
+
 def contact_moving_moving(contact_fn: Callable, shape_a, v_a: Vec3, shape_b,
                           v_b: Vec3) -> Contact:
     """Reduce two moving shapes to one static + relative velocity
     (collision.rs:1387-1401): ``contact_fn(a, b, v_b - v_a)`` advected by
     ``v_a * t``."""
     c = contact_fn(shape_a, shape_b, v_b - v_a)
+    return contact_advect(c, v_a * c.t)
+
+
+def contact_moving_static(contact_fn: Callable, shape_a, v_a: Vec3,
+                          shape_b) -> Contact:
+    """Moving receiver vs static argument (collision.rs:1368-1382)."""
+    c = contact_fn(shape_a, shape_b, -v_a)
     return contact_advect(c, v_a * c.t)

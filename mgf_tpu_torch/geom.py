@@ -1,8 +1,7 @@
-"""Primitive shapes of the sphere and capsule slices, as NamedTuples of
-tensors.
+"""Primitive shapes, as NamedTuples of tensors.
 
-Counterpart of the sphere, capsule, segment, plane, triangle and AABB part
-of ``mgf_tpu.geom`` (reference: geom.rs).  A single shape and a batch of a
+Counterpart of the sphere, capsule, segment, plane, triangle, rectangle and
+AABB part of ``mgf_tpu.geom`` (reference: geom.rs).  A single shape and a batch of a
 million are the same type; every routine is branch-free.
 """
 
@@ -37,6 +36,15 @@ class Triangle(NamedTuple):
     c: Vec3
 
 
+class Rectangle(NamedTuple):
+    """Center, two unit axes, two half-widths (geom.rs:216-223)."""
+    c: Vec3
+    u0: Vec3
+    u1: Vec3
+    e0: torch.Tensor
+    e1: torch.Tensor
+
+
 class AABB(NamedTuple):
     """Axis-aligned box: center + half widths (geom.rs:257-260)."""
     c: Vec3
@@ -68,7 +76,28 @@ def triangle_vertices(t: Triangle):
     return (t.a, t.b, t.c)
 
 
+def plane_from_rectangle(r: Rectangle) -> Plane:
+    """geom.rs:240-246 (n = u1 x u0)."""
+    n = cross(r.u1, r.u0)
+    return Plane(n=n, d=dot(n, r.c))
+
+
+def rectangle(c: Vec3, u0: Vec3, u1: Vec3, e0, e1) -> Rectangle:
+    return Rectangle(c=c, u0=u0, u1=u1,
+                     e0=torch.as_tensor(e0, dtype=torch.float32),
+                     e1=torch.as_tensor(e1, dtype=torch.float32))
+
+
+def rectangle_vertices(r: Rectangle):
+    """Corner tuple, geom.rs:906-917 ordering."""
+    u0e = r.u0 * r.e0
+    u1e = r.u1 * r.e1
+    return (r.c + u0e + u1e, r.c + u0e - u1e, r.c - u0e - u1e,
+            r.c - u0e + u1e)
+
+
 TRIANGLE_EDGES = ((0, 1), (1, 2), (2, 0))  # geom.rs:899
+RECTANGLE_EDGES = ((0, 1), (1, 2), (2, 3), (3, 0))  # geom.rs:921
 
 
 def segment_of_capsule(c: Capsule) -> Segment:

@@ -190,6 +190,10 @@ def qmul(p: Quat, q: Quat) -> Quat:
     return Quat(w, v.x, v.y, v.z)
 
 
+def qconj(q: Quat) -> Quat:
+    return Quat(q.w, -q.x, -q.y, -q.z)
+
+
 def qnormalize(q: Quat) -> Quat:
     m2 = q.w * q.w + q.x * q.x + q.y * q.y + q.z * q.z
     ok = m2 > 0.0

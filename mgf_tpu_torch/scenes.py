@@ -1,5 +1,5 @@
 """Scene builders (counterpart of ``mgf_tpu.scenes``): the sphere and
-capsule demos and the 100k stress piles.
+capsule demos, the heightfield terrain scene and the 100k stress piles.
 
 * :func:`balls_scene` — the reference demo (mgf_demo/balls.rs:64-96): an
   11^3 grid of r=0.5 spheres plus one dropped from y=130 into the demo's
@@ -8,6 +8,10 @@ capsule demos and the 100k stress piles.
 * :func:`capsules_scene` — the capsules demo (capsules.rs:66-95): an 11^3
   grid of capsules over the same box, Mat3 inertia, the "mid" flank
   manifold, dense terrain with ``terrain_rows=6``.
+* :func:`terrain_scene` — BASELINE config 3 as a simulated world: 10,000
+  spheres and capsules (a quarter of them capsules) raining onto a
+  10,368-triangle heightfield, on the generic branch with the grid-culled
+  terrain narrowphase (``terrain_bp="grid"``) and ``solver_rows=14``.
 * :func:`stress_scene` — the flagship: a ``layers``-deep block of r=0.5
   spheres settling into an open-top box, on the ``fused_iso`` branch; with
   ``mixed=True`` every fourth body is a capsule (BASELINE.json config 5's
@@ -107,6 +111,64 @@ def capsules_scene(num: int = 11, solver: str = "rows", *, device=CUDA):
         dt=1.0 / 60.0, solver_iters=20, shape_mode="capsules", solver=solver,
         grid=GridConfig(cell_size=4.0, dim=64, bucket_cap=16),
         max_pairs=24, fatten=0.25, terrain_rows=6)
+    return world, cfg
+
+
+def terrain_scene(n_bodies: int = 10_000, grid_n: int = 72, seed: int = 2,
+                  *, device=CUDA):
+    """Mixed sphere/capsule bodies raining onto a >= 10k-triangle
+    heightfield, with the grid-culled terrain narrowphase (mesh.rs:115-139,
+    the BVH::query analog).  ``grid_n=72`` gives 72^2 * 2 = 10,368 faces.
+    Returns (World, WorldConfig) with the world's tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    # heightfield: smooth sines, cell 2.0, amplitude 2
+    cell = 2.0
+    ext = grid_n * cell / 2.0
+    xs = np.linspace(-ext, ext, grid_n + 1, dtype=np.float32)
+    zs = np.linspace(-ext, ext, grid_n + 1, dtype=np.float32)
+    X, Z = np.meshgrid(xs, zs, indexing="ij")
+    Y = (2.0 * np.sin(X * 0.15) * np.cos(Z * 0.11)).astype(np.float32)
+    verts = np.stack([X, Y, Z], axis=-1).reshape(-1, 3)
+    idx = np.arange((grid_n + 1) * (grid_n + 1)).reshape(grid_n + 1,
+                                                         grid_n + 1)
+    a = idx[:-1, :-1].ravel()
+    b = idx[:-1, 1:].ravel()
+    c = idx[1:, :-1].ravel()
+    d = idx[1:, 1:].ravel()
+    faces = np.concatenate(
+        [np.stack([a, b, c], axis=-1), np.stack([b, d, c], axis=-1)],
+        axis=0).astype(np.int32)
+
+    side = int(np.ceil(n_bodies ** (1.0 / 3.0)))
+    ii = np.arange(side ** 3)[:n_bodies]
+    i, j, k = ii // (side * side), (ii // side) % side, ii % side
+    shift = 1.4
+    pos = np.stack([
+        (i - side / 2) * shift,
+        8.0 + j * shift,
+        (k - side / 2) * shift,
+    ], axis=-1).astype(np.float32)
+    pos += rng.uniform(-0.02, 0.02, pos.shape).astype(np.float32)
+
+    bld = SceneBuilder()
+    caps = np.arange(n_bodies) % 4 == 0
+    # spheres first: the type-partitioned step needs type-sorted bodies
+    bld.add_spheres(pos[~caps], 0.5, mass=1.0, restitution=0.3, friction=0.6)
+    bld.add_capsules(pos[caps] - np.asarray([[0.25, 0.0, 0.0]]),
+                     np.asarray([[0.5, 0.0, 0.0]]), 0.5,
+                     mass=1.0, restitution=0.3, friction=0.6)
+
+    # face cell >= the largest face radius (plus the height slope)
+    tg = GridConfig(cell_size=4.0, dim=64, bucket_cap=16)
+    world = make_world(bld.build(device), verts, faces, terrain_grid_cfg=tg,
+                       device=device)
+    cfg = WorldConfig(
+        dt=1.0 / 60.0, solver_iters=10, solver_inner=2, two_phase=False,
+        shape_mode="mixed", solver="rows", broadphase="packed",
+        grid=GridConfig(cell_size=1.6, dim=64, bucket_cap=8),
+        max_pairs=12, fatten=0.1, terrain_bp="grid", terrain_cand=6,
+        terrain_grid_cfg=tg, solver_rows=14,
+        n_sphere_rows=int(np.sum(~caps)))
     return world, cfg
 
 

@@ -1,20 +1,37 @@
-"""Row-structured contact solver: the isotropic (sphere) path and the
-general Mat3-inertia path of capsules.
+"""Contact solvers: the reference's flat constraint list (sequential
+Gauss-Seidel and the mass-split parallel Jacobi) and the row-structured
+solver (the isotropic sphere path and the general Mat3-inertia path).
 
-Counterpart of the row solver of ``mgf_tpu.solver`` (reference: solver.rs
-impulse math, warm-started sequential impulses with Baumgarte
-stabilization, restitution threshold and two-axis friction).  Every body
+Counterpart of ``mgf_tpu.solver`` (reference: solver.rs impulse math,
+sequential impulses with Baumgarte stabilization, restitution threshold
+and two-axis friction).
+
+**Flat form** (``solver="sequential"`` / ``"parallel"``):
+:func:`build_constraints` flattens a slot-major manifold batch into one
+:class:`ContactConstraints` list whose order IS the Gauss-Seidel order.
+:func:`solve_sequential` runs the sweeps in that order (kernel K4 on a
+card, ``ops/sequential_solve.py``); :func:`solve_parallel` solves every
+point at once with per-body segment sums (``index_add_``).
+
+Friction-clamp policy: mgf's accumulator clamp is broken (solver.rs:226
+passes ``clamp``'s arguments in the wrong order and solver.rs:227 applies
+the raw lambda), so reference friction acts unclamped.  The default is the
+textbook clamped accumulator; ``friction_mode="mgf"`` reproduces the
+raw-lambda behaviour, in every solver.
+
+**Row form** (``solver="rows"``): every body
 owns a row of R constraint slots (its broadphase partners plus terrain
 triangles); each pair appears twice, once per body, mirrored; a solver
 iteration is one gather of the packed (8, N) body state by the (R, N)
 partner matrix, elementwise impulse math and a sum over the R axis.
 
-``solve_rows`` runs textbook friction, single- and two-phase, with scalar
+``solve_rows`` runs either friction mode, single- and two-phase, with scalar
 (isotropic) or Mat3 inverse inertia, warm starting, ``partner_term0``,
 ``n_gather_rows``, block solves over a column range (``col_offset``,
 ``state0``, ``return_state``) and the fused gather + inner-sweep kernel
 (``pallas_inner``, kept under the JAX package's name: here it selects the
-CUDA kernel of ``ops/solver_sweep.py``; scalar inertia, no column offset).
+CUDA kernel of ``ops/solver_sweep.py``; scalar inertia, textbook friction,
+no column offset).
 The constraint builds: :func:`build_row_constraints` (Mat3 inertia, three
 8-wide partner gathers), :func:`build_row_constraints_iso` (one 16-wide
 partner gather, the generic sphere branch) and
@@ -31,6 +48,7 @@ from mgf_tpu_torch.manifold import Manifold
 from mgf_tpu_torch.math3d import (
     Mat3, Vec3, cross, dot, magnitude2, mat_vec, safe_div, tree_map,
 )
+from mgf_tpu_torch.ops import sequential_solve as _seq
 from mgf_tpu_torch.ops import solver_sweep as _ss
 
 # DefaultContactConstraintParams (solver.rs:276-279)
@@ -58,6 +76,151 @@ class BodyView(NamedTuple):
     friction: torch.Tensor
     inv_mass: torch.Tensor
     inv_moment: Mat3
+
+
+class ContactConstraints(NamedTuple):
+    """Flat SoA of contact points ready to solve (ContactState,
+    solver.rs:256-262, plus indices and geometry); every tensor (C,)."""
+    body_a: torch.Tensor    # (C,) int32
+    body_b: torch.Tensor    # (C,) int32
+    ra: Vec3                # contact point local to body a
+    rb: Vec3
+    normal: Vec3
+    t1: Vec3                # friction tangents
+    t2: Vec3
+    friction: torch.Tensor  # mixed sqrt(fa * fb) (solver.rs:126)
+    bias: torch.Tensor
+    normal_mass: torch.Tensor
+    tangent_mass1: torch.Tensor
+    tangent_mass2: torch.Tensor
+    valid: torch.Tensor     # bool
+
+
+def build_constraints(bodies: BodyView, body_a, body_b, manifold: Manifold,
+                      dt, split_a=None, split_b=None,
+                      bias_max: float = -1.0) -> ContactConstraints:
+    """Per-contact state (ContactConstraint::new, solver.rs:101-192) for a
+    batch of P pairs.  ``manifold`` fields are (P,) with a leading slot
+    axis S on the contact points; the result is C = S * P points, slot 0
+    of every pair first: this order is the Gauss-Seidel order.
+    ``split_a`` / ``split_b`` are optional (P,) mass-splitting factors for
+    the parallel solver; omit them for the reference's effective masses."""
+    S = manifold.valid.shape[0]
+    ia, ib = body_a.long(), body_b.long()
+    xa, xb = bodies.x[ia], bodies.x[ib]
+    va, vb = bodies.v[ia], bodies.v[ib]
+    oa, ob = bodies.omega[ia], bodies.omega[ib]
+    ima, imb = bodies.inv_mass[ia], bodies.inv_mass[ib]
+    Ia, Ib = bodies.inv_moment[ia], bodies.inv_moment[ib]
+    restitution = torch.maximum(bodies.restitution[ia],
+                                bodies.restitution[ib])
+    friction = torch.sqrt(bodies.friction[ia] * bodies.friction[ib])
+    if split_a is not None:
+        ima, Ia = ima * split_a, Ia * split_a
+    if split_b is not None:
+        imb, Ib = imb * split_b, Ib * split_b
+
+    n, t1, t2 = manifold.normal, manifold.t1, manifold.t2
+
+    def eff_mass(ra, rb, axis):
+        ra_c = cross(ra, axis)
+        rb_c = cross(rb, axis)
+        return safe_div(
+            1.0, ima + dot(ra_c, mat_vec(Ia, ra_c))
+            + imb + dot(rb_c, mat_vec(Ib, rb_c)))
+
+    def per_slot(s):
+        ra = Vec3(*(c[s] for c in manifold.local_a))
+        rb = Vec3(*(c[s] for c in manifold.local_b))
+        pen = dot((rb + xb) - (ra + xa), n)
+        dv = vb + cross(ob, rb) - va - cross(oa, ra)
+        bias = contact_bias(pen, dot(dv, n), restitution, dt, bias_max)
+        return (ra, rb, bias, eff_mass(ra, rb, n), eff_mass(ra, rb, t1),
+                eff_mass(ra, rb, t2))
+
+    slots = [per_slot(s) for s in range(S)]
+    cat = lambda i: tree_map(lambda *xs: torch.cat(xs, dim=0),
+                             *(sl[i] for sl in slots))
+    rep = lambda a: tree_map(lambda x: torch.cat([x] * S, dim=0), a)
+    return ContactConstraints(
+        body_a=rep(body_a.to(torch.int32)), body_b=rep(body_b.to(torch.int32)),
+        ra=cat(0), rb=cat(1), normal=rep(n), t1=rep(t1), t2=rep(t2),
+        friction=rep(friction), bias=cat(2), normal_mass=cat(3),
+        tangent_mass1=cat(4), tangent_mass2=cat(5),
+        valid=manifold.valid.reshape(-1))
+
+
+def solve_sequential(con: ContactConstraints, bodies: BodyView, iters: int,
+                     friction_mode: str = "textbook"):
+    """Gauss-Seidel sweeps in point order: the reference's semantics
+    exactly (solver.rs:72-78), accumulators zero at the start.  Kernel K4
+    (``ops/sequential_solve.py``) runs the sweeps; on CPU tensors its
+    plain version.  Returns (v, omega) for all M body rows."""
+    out = _seq.sequential_solve(
+        _seq.pack_points(con), con.body_a.contiguous(),
+        con.body_b.contiguous(), con.valid.contiguous(),
+        _seq.pack_bodies(bodies.v, bodies.omega, bodies.inv_mass,
+                         bodies.inv_moment),
+        iters, friction_mode == "mgf")
+    return (Vec3(out[:, 0], out[:, 1], out[:, 2]),
+            Vec3(out[:, 3], out[:, 4], out[:, 5]))
+
+
+def contact_counts(valid, body_a, body_b, num_bodies: int):
+    """Number of valid contact points touching each body (mass
+    splitting), at least 1."""
+    ones = valid.to(torch.float32)
+    c = torch.zeros((num_bodies,), dtype=torch.float32, device=ones.device)
+    c.index_add_(0, body_a.long(), ones)
+    c.index_add_(0, body_b.long(), ones)
+    return torch.clamp(c, min=1.0)
+
+
+def _seg_vec(v: Vec3, ids, m) -> Vec3:
+    """Per-component segment sums of ``v`` into ``m`` rows."""
+    ids = ids.long()
+
+    def seg(x):
+        return torch.zeros((m,), dtype=x.dtype, device=x.device).index_add_(
+            0, ids, x)
+    return Vec3(seg(v.x), seg(v.y), seg(v.z))
+
+
+def solve_parallel(con: ContactConstraints, bodies: BodyView, iters: int,
+                   friction_mode: str = "textbook"):
+    """Mass-split Jacobi sweeps, parallel over the contact points (Tonge et
+    al. 2012): ``con`` is built with split factors = contact counts.  Each
+    sweep has a friction phase and a normal phase, each a gather, the
+    impulse and per-component segment sums (``index_add_``; on a card its
+    atomics add in an order that changes from run to run)."""
+    M = bodies.inv_mass.shape[0]
+    inv_mass, inv_moment = bodies.inv_mass, bodies.inv_moment
+    okf = con.valid.to(torch.float32)
+    ia, ib = con.body_a.long(), con.body_b.long()
+
+    def apply_impulse(v, omega, imp: Vec3):
+        imp = imp * okf
+        dv = _seg_vec(-imp, ia, M) + _seg_vec(imp, ib, M)
+        v = v + dv * inv_mass
+        dl = (_seg_vec(-cross(con.ra, imp), ia, M)
+              + _seg_vec(cross(con.rb, imp), ib, M))
+        return v, omega + mat_vec(inv_moment, dl)
+
+    def rel_vel(v, omega):
+        return ((v[ib] + cross(omega[ib], con.rb))
+                - (v[ia] + cross(omega[ia], con.ra)))
+
+    v, omega = bodies.v, bodies.omega
+    acc_n = torch.zeros_like(okf)
+    acc_t1, acc_t2 = acc_n, acc_n
+    for _ in range(iters):
+        dv = rel_vel(v, omega)
+        f1, f2, acc_t1, acc_t2 = _friction_impulses(con, dv, acc_t1, acc_t2,
+                                                    friction_mode, acc_n)
+        v, omega = apply_impulse(v, omega, con.t1 * f1 + con.t2 * f2)
+        fn, acc_n = _normal_impulse(con, rel_vel(v, omega), acc_n)
+        v, omega = apply_impulse(v, omega, con.normal * fn)
+    return v, omega
 
 
 class RowConstraints(NamedTuple):
@@ -339,12 +502,14 @@ def unpack_body_state(S):
     return (Vec3(S[0], S[1], S[2]), Vec3(S[3], S[4], S[5]))
 
 
-def _friction_impulses(rc, dv: Vec3, acc_t1, acc_t2, acc_n):
-    """Both tangent-axis lambdas from a single dv with the textbook clamped
-    accumulator (solver.rs:220-232).  Returns (applied1, applied2,
-    new_acc1, new_acc2)."""
+def _friction_impulses(rc, dv: Vec3, acc_t1, acc_t2, friction_mode, acc_n):
+    """Both tangent-axis lambdas from a single dv (solver.rs:220-232),
+    textbook-clamped or, with ``friction_mode="mgf"``, the reference's raw
+    lambda.  Returns (applied1, applied2, new_acc1, new_acc2)."""
     lam1 = -dot(dv, rc.t1) * rc.tangent_mass1
     lam2 = -dot(dv, rc.t2) * rc.tangent_mass2
+    if friction_mode == "mgf":
+        return lam1, lam2, acc_t1 + lam1, acc_t2 + lam2
     max_l = rc.friction * acc_n
     new1 = torch.minimum(torch.maximum(acc_t1 + lam1, -max_l), max_l)
     new2 = torch.minimum(torch.maximum(acc_t2 + lam2, -max_l), max_l)
@@ -395,10 +560,6 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
     ``return_state``; plus the (R, N) accumulator triple with
     ``return_acc``.
     """
-    if friction_mode != "textbook":
-        raise NotImplementedError(
-            "solve_rows with friction_mode='mgf' arrives with the "
-            "reference-solver slice (ROADMAP slice 10)")
     n = rc.partner.shape[1]
     lo, hi = col_offset, col_offset + n
     S = pack_body_state(v, omega) if state0 is None else state0
@@ -447,7 +608,8 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
         acc0 = (wn, wt1, wt2)
 
     if pallas_inner:
-        if two_phase or mat3 or col_offset:
+        if (two_phase or friction_mode != "textbook" or mat3
+                or col_offset):
             raise ValueError("pallas_inner requires the single-phase "
                              "textbook-friction iso (scalar inertia) path "
                              "without a column offset")
@@ -486,8 +648,8 @@ def solve_rows(rc: RowConstraints, v: Vec3, omega: Vec3, inv_mass,
                   else partner_term(S))
         for _ in range(inner_iters):
             dv = frozen - self_term(S)
-            f1, f2, acc_t1, acc_t2 = _friction_impulses(rc, dv, acc_t1,
-                                                        acc_t2, acc_n)
+            f1, f2, acc_t1, acc_t2 = _friction_impulses(
+                rc, dv, acc_t1, acc_t2, friction_mode, acc_n)
             if two_phase:
                 S = apply_self(S, rc.t1 * f1 + rc.t2 * f2)
                 dv = frozen - self_term(S)

@@ -1,5 +1,6 @@
 """The end-to-end physics step for spheres, capsules and mixed piles: the
-flagship ``fused_iso`` branch and the generic branch.
+flagship ``fused_iso`` branch, the generic row branch and the reference's
+flat constraint list.
 
 Counterpart of ``mgf_tpu.world`` (reference: ``mgf_demo/world.rs:227-294``,
 ``World::step``):
@@ -33,12 +34,27 @@ Counterpart of ``mgf_tpu.world`` (reference: ``mgf_demo/world.rs:227-294``,
 * **warm starting on the generic branch**: the positional, search and
   hybrid row matches, ``warm_gamma`` and the adaptive schedule, as on the
   fused branch.
+* **row compaction** (``solver_rows``): every body keeps its
+  ``solver_rows`` earliest valid rows before the constraint build, and
+  ``solver_rows_dropped`` counts the rest.
+* **the flat constraint list** (``solver="sequential"`` / ``"parallel"``,
+  the reference's single-direction form, world.rs:266-268): ordered pair
+  candidates, one ``build_constraints`` per manifold (pairs first, then
+  terrain), and the sequential Gauss-Seidel solve (kernel K4) or the
+  mass-split parallel one.
+* **mesh terrain** (``terrain_bp="grid"``): the static face cell table
+  ``World.terrain_grid`` (built by :func:`make_world` with
+  ``terrain_grid_cfg``) culls the faces of a large mesh to
+  ``terrain_cand`` per body, the mesh BVH::query equivalent (mesh.rs:121).
 
 All branches keep every pair and terrain batch 2-D and slot-major,
 (width, N), so the self side of a batch is a broadcast of the body
 columns.  The JAX generic branch flattens the same batches to
 (width * N,), which is the row-major reshape of the port's;
-``collect_contacts`` returns the JAX package's flat streams.
+``collect_contacts`` returns the JAX package's flat streams, and the flat
+constraint list takes its points in that same order (point s * K * N +
+k * N + i is slot s of body i's k-th pair): the order of the points is
+the Gauss-Seidel order.
 
 :class:`WorldConfig` keeps every field name and default of the JAX
 package's, so a config moves between the two unchanged.  Configurations
@@ -72,6 +88,7 @@ from mgf_tpu_torch.collision import (
 )
 from mgf_tpu_torch.geom import AABB, Capsule, Sphere, Triangle
 from mgf_tpu_torch.manifold import PERSISTENT_THRESHOLD_SQ, Manifold, prune
+from mgf_tpu_torch.mesh import build_mesh_grid, mesh_from_arrays
 from mgf_tpu_torch.math3d import (
     Quat, Vec3, dot, magnitude2, qrotate, tree_map, where_vec,
 )
@@ -81,9 +98,9 @@ from mgf_tpu_torch.physics import (
     integrate,
 )
 from mgf_tpu_torch.solver import (
-    BodyView, PartnerFields, build_row_constraints,
-    build_row_constraints_iso, build_row_constraints_iso_fused, solve_rows,
-    unpack_body_state,
+    BodyView, PartnerFields, build_constraints, build_row_constraints,
+    build_row_constraints_iso, build_row_constraints_iso_fused,
+    solve_parallel, solve_rows, solve_sequential, unpack_body_state,
 )
 
 CUDA = torch.device("cuda")
@@ -164,7 +181,10 @@ class World(NamedTuple):
     bodies: RigidBodyState
     terrain: Triangle        # triangle soup in world space, Vec3 (T,)
     terrain_center: Vec3
-    terrain_grid: torch.Tensor = None  # "grid" terrain face table (unused)
+    terrain_grid: torch.Tensor = None  # (dim^3, 4*cap) float face table
+                                       # for terrain_bp="grid": rows
+                                       # [fid*cap | cx*cap | cy*cap |
+                                       # cz*cap] (face id + centroid)
     warm: SolverWarm = None            # cfg.warm_start state (init_warm)
     bp: BpCache = None                 # cfg.bp_every state (init_bp_cache)
 
@@ -221,9 +241,19 @@ def init_warm(world: World, cfg: WorldConfig, device=None) -> World:
 
 
 def make_world(bodies: RigidBodyState, terrain_verts=None, terrain_faces=None,
-               terrain_center=(0.0, 0.0, 0.0), *, device=CUDA) -> World:
+               terrain_center=(0.0, 0.0, 0.0),
+               terrain_grid_cfg: GridConfig = None, *, device=CUDA) -> World:
     """Assemble a world; terrain given as (V, 3) vertices + (T, 3) faces
-    (numpy).  The "grid" terrain face table is not on this slice."""
+    (numpy).
+
+    ``terrain_grid_cfg`` builds the static face cell table of the "grid"
+    terrain broadphase (large meshes): every face is binned into each cell
+    its AABB overlaps (:func:`mesh.build_mesh_grid`, on the host), so the
+    +-1-cell query window only has to cover the body's reach (radius + half
+    height + sweep); keep ``cell_size`` >= both the largest face radius and
+    the largest body reach.  The step reports ``terrain_reach_excess``
+    (the largest body reach minus ``cell_size``, at least 0)."""
+    grid_table = None
     if terrain_verts is None:
         tv = np.zeros((0, 3), np.float32)
         corners = (tv, tv, tv)
@@ -231,12 +261,31 @@ def make_world(bodies: RigidBodyState, terrain_verts=None, terrain_faces=None,
         tv = np.asarray(terrain_verts, np.float32)
         tf = np.asarray(terrain_faces, np.int32)
         corners = tuple(tv[tf[:, k]] for k in range(3))
+        if terrain_grid_cfg is not None:
+            mg = build_mesh_grid(mesh_from_arrays(tv, tf, device="cpu"),
+                                 terrain_grid_cfg.cell_size,
+                                 terrain_grid_cfg.dim,
+                                 terrain_grid_cfg.bucket_cap)
+            # component-blocked float rows [fid*cap | cx*cap | cy*cap |
+            # cz*cap]: the face centroid rides the window gather, so the
+            # cull's distance scoring needs no per-candidate gather
+            ids = mg.table.numpy()                       # (C, cap)
+            cent = tv[tf[:, 0]] / 3 + tv[tf[:, 1]] / 3 + tv[tf[:, 2]] / 3
+            safe = np.maximum(ids, 0)
+            okm = ids >= 0
+            comp = [np.where(okm, ids, -1).astype(np.float32),
+                    np.where(okm, cent[safe, 0], 0).astype(np.float32),
+                    np.where(okm, cent[safe, 1], 0).astype(np.float32),
+                    np.where(okm, cent[safe, 2], 0).astype(np.float32)]
+            grid_table = torch.as_tensor(np.concatenate(comp, axis=1),
+                                         device=device)
     vec = lambda a: Vec3(*(torch.as_tensor(np.ascontiguousarray(a[:, k]),
                                            device=device) for k in range(3)))
     tri = Triangle(*(vec(c) for c in corners))
     tc = np.asarray(terrain_center, np.float32)
     center = Vec3(*(torch.as_tensor(tc[k], device=device) for k in range(3)))
-    return World(bodies=bodies, terrain=tri, terrain_center=center)
+    return World(bodies=bodies, terrain=tri, terrain_center=center,
+                 terrain_grid=grid_table)
 
 
 def _stable_sort_pairs(partner, pair_ok):
@@ -509,30 +558,30 @@ def _body_bounds(cfg: WorldConfig, sv) -> AABB:
 
 def _check_slice(cfg: WorldConfig, world: World, n_tris: int):
     """Raise for any configuration the port does not run yet."""
+    if cfg.shape_mode not in ("spheres", "capsules", "mixed"):
+        raise ValueError(f"unknown shape_mode {cfg.shape_mode!r}")
+    if cfg.solver not in ("rows", "parallel", "sequential"):
+        raise ValueError(f"unknown solver {cfg.solver!r}")
     off = None
     if cfg.profile_stage:
         off = ("profile_stage (becomes profiler ranges)", 14)
-    elif cfg.solver != "rows":
-        off = (f"solver={cfg.solver!r}", 10)
-    elif cfg.shape_mode not in ("spheres", "capsules", "mixed"):
-        raise ValueError(f"unknown shape_mode {cfg.shape_mode!r}")
     elif cfg.use_grid and cfg.broadphase not in ("packed", "fat27x4"):
         off = (f"broadphase={cfg.broadphase!r}", 14)
     elif cfg.bp_margin > 0.0:
         off = ("bp_margin (the fat-proxy refit cache)", 14)
-    elif n_tris > 0 and cfg.terrain_bp == "grid":
-        off = ("terrain_bp='grid'", 11)
-    elif not cfg.fused_iso and cfg.solver_rows:
-        off = ("solver_rows compaction", 14)
     if off is not None:
         raise NotImplementedError(
-            f"mgf_tpu_torch runs the fused_iso branch and the generic "
-            f"branch for spheres, capsules and mixed piles; "
-            f"{off[0]} arrives with ROADMAP slice {off[1]}")
+            f"mgf_tpu_torch runs the fused_iso branch, the generic row "
+            f"branch and the flat solvers for spheres, capsules and mixed "
+            f"piles; {off[0]} arrives with ROADMAP slice {off[1]}")
     # the JAX package's own guards
+    if n_tris > 0 and cfg.terrain_bp == "grid" and (
+            world.terrain_grid is None or cfg.terrain_grid_cfg is None):
+        raise ValueError("terrain_bp='grid' needs make_world("
+                         "terrain_grid_cfg=...) and cfg.terrain_grid_cfg")
     if cfg.fused_iso and (
             cfg.shape_mode != "spheres" or not cfg.warm_start
-            or cfg.solver_rows or world.warm is None
+            or cfg.solver_rows or cfg.solver != "rows" or world.warm is None
             or (n_tris > 0 and cfg.terrain_bp not in ("near", "grid"))):
         raise ValueError(
             "cfg.fused_iso requires shape_mode='spheres', solver='rows',"
@@ -577,6 +626,53 @@ def _near_terrain(world: World, state: RigidBodyState, cfg: WorldConfig):
     return pick.to(torch.int32), torch.isfinite(top)
 
 
+def _grid_terrain(world: World, state: RigidBodyState, cfg: WorldConfig):
+    """The "grid" terrain cull (the mesh BVH::query equivalent,
+    mesh.rs:121): the 27 face-table rows around each body's cell, scored
+    by a fused int32 key (14-bit quantized centroid distance | 17-bit face
+    id), over-selected 4x, the adjacent duplicates a face binned into two
+    window cells leaves masked, and the ``terrain_cand`` nearest distinct
+    faces kept.  Keys are unique per face, so the selected VALUES do not
+    depend on the order of ties; the selections are stable descending
+    sorts all the same, as the "near" cull's.  Returns (candidate face ids
+    (N, terrain_cand) int32, valid, terrain_reach_excess)."""
+    tg = cfg.terrain_grid_cfg
+    table = world.terrain_grid
+    cap = table.shape[1] // 4
+    c = state.x
+    cell = lambda comp: torch.floor(comp / tg.cell_size).to(torch.int32)
+    cx, cy, cz = cell(c.x), cell(c.y), cell(c.z)
+    mmask = tg.dim - 1
+    inv_scale = 16383.0 / (3.0 * tg.cell_size) ** 2
+    keys = []
+    for (dx, dy, dz) in broadphase._OFFSETS:
+        h = ((((cx + dx) & mmask) * tg.dim + ((cy + dy) & mmask)) * tg.dim
+             + ((cz + dz) & mmask))
+        rows = table[h.long()]                       # (N, 4*cap) ONE gather
+        fid = rows[:, :cap]
+        dxc = rows[:, cap:2 * cap] - c.x[:, None]
+        dyc = rows[:, 2 * cap:3 * cap] - c.y[:, None]
+        dzc = rows[:, 3 * cap:4 * cap] - c.z[:, None]
+        d2 = dxc * dxc + dyc * dyc + dzc * dzc
+        q = torch.clamp((d2 * inv_scale).to(torch.int32), max=16383)
+        keys.append(torch.where(fid >= 0.0,
+                                ((16383 - q) << 17) | fid.to(torch.int32),
+                                -1))
+    keym = torch.cat(keys, dim=1)                    # (N, 27*cap) int32
+    top = lambda k, x: torch.sort(x, dim=1, descending=True,
+                                  stable=True).values[:, :k]
+    top1 = top(min(4 * cfg.terrain_cand, keym.shape[1]), keym)
+    dup = torch.zeros_like(top1, dtype=torch.bool)
+    dup[:, 1:] = top1[:, 1:] == top1[:, :-1]
+    top2 = top(cfg.terrain_cand, torch.where(dup, -1, top1))
+    t_ok = top2 >= 0
+    # the +-1-cell window covers a body only while its reach <= cell_size
+    t_reach = (state.shape_r + state.shape_half_h
+               + torch.sqrt(magnitude2(state.delta)))
+    excess = torch.clamp(torch.max(t_reach) - tg.cell_size, min=0.0)
+    return torch.where(t_ok, top2 & 0x1FFFF, -1), t_ok, excess
+
+
 def _match_warm(warm: SolverWarm, partner_rows, key2_rows, n: int,
                 n_tris: int, search: bool):
     """Warm-start accumulators for this frame's rows.  Positional: a row
@@ -614,10 +710,13 @@ def _match_warm(warm: SolverWarm, partner_rows, key2_rows, n: int,
 
 def _fat_pairs(bounds, alive, cfg: WorldConfig):
     """One fat-grid candidate build (fat27x4): partner (N, K), ok,
-    overflow; canonically sorted with ``stable_pairs``."""
+    overflow; canonically sorted with ``stable_pairs``.  The flat solvers
+    take each pair once (the partner of smaller index), the rows solver in
+    both directions."""
     grid = broadphase.build_fat_grid(bounds, cfg.grid, width=4, valid=alive)
     partner, pair_ok = broadphase.fat_grid_pairs(
-        bounds, grid, cfg.grid, cfg.max_pairs, ordered=False, window="27")
+        bounds, grid, cfg.grid, cfg.max_pairs, ordered=cfg.solver != "rows",
+        window="27")
     if cfg.stable_pairs:
         partner, pair_ok = _stable_sort_pairs(partner, pair_ok)
     return partner, pair_ok, grid.overflow
@@ -634,6 +733,66 @@ def _man_to_rows(man: Manifold, width: int, n: int) -> Manifold:
                     local_a=tree_map(slotf, man.local_a),
                     local_b=tree_map(slotf, man.local_b),
                     valid=slotf(man.valid))
+
+
+def _compact_rows(man_rows: Manifold, partner_rows, key2_rows, kk: int):
+    """Keep every body's top-``kk`` rows, valid and earliest first (score
+    valid * (2 - clip(time, 0, 1))), as one gather of the packed (R0, N,
+    20) rows (body indices < 2^24 are exact in float32).  ``lax.top_k``
+    keeps the lower row among equal scores: a stable descending sort.
+    Returns the compacted rows and the count of valid rows dropped."""
+    m = man_rows
+    n_valid = torch.sum(m.valid, dim=0)
+    score = m.valid.to(torch.float32) * (2.0 - torch.clamp(m.time, 0.0, 1.0))
+    packed = torch.stack([
+        m.time, *m.normal, *m.t1, *m.t2, *m.local_a, *m.local_b,
+        m.valid.to(torch.float32), partner_rows.to(torch.float32),
+        key2_rows.to(torch.float32), torch.zeros_like(m.time)], dim=-1)
+    r_idx = torch.sort(score.T, dim=1, descending=True,
+                       stable=True).indices[:, :kk].T       # (kk, N)
+    g = torch.gather(packed, 0, r_idx[:, :, None].expand(-1, -1, 20))
+    out = Manifold(time=g[..., 0], normal=Vec3(g[..., 1], g[..., 2],
+                                               g[..., 3]),
+                   t1=Vec3(g[..., 4], g[..., 5], g[..., 6]),
+                   t2=Vec3(g[..., 7], g[..., 8], g[..., 9]),
+                   local_a=Vec3(g[..., 10], g[..., 11], g[..., 12]),
+                   local_b=Vec3(g[..., 13], g[..., 14], g[..., 15]),
+                   valid=g[..., 16] > 0.5)
+    dropped = torch.sum(torch.clamp(n_valid - kk, min=0)).to(torch.int32)
+    return (out, g[..., 17].to(torch.int32), g[..., 18].to(torch.int32),
+            dropped)
+
+
+def _flat_solve(cfg: WorldConfig, manifolds, idx_a, idx_b, bodies_ext,
+                n: int):
+    """The reference's single-direction constraint list: mass-splitting
+    counts over the n + 1 body rows (``solver="parallel"`` only), one
+    ``build_constraints`` per manifold in order (pairs, then terrain), and
+    the sequential or the parallel solve.  Manifolds come slot-major (S,
+    width, N) and are flattened row-major, the JAX package's layout.
+    Returns (v, omega, the constraint list's valid mask)."""
+    dev = bodies_ext.inv_mass.device
+    flat = lambda man: tree_map(lambda x: x.reshape(x.shape[0], -1)
+                                if x.dim() == 3 else x.reshape(-1), man)
+    manifolds = [flat(m) for m in manifolds]
+    use_split = cfg.solver == "parallel"
+    if use_split:
+        counts = torch.zeros((n + 1,), dtype=torch.float32, device=dev)
+        for man, ia, ib in zip(manifolds, idx_a, idx_b):
+            pts = torch.sum(man.valid, dim=0).to(torch.float32)
+            counts.index_add_(0, ia.long(), pts)
+            counts.index_add_(0, ib.long(), pts)
+        counts = torch.clamp(counts, min=1.0)
+    cons = []
+    for man, ia, ib in zip(manifolds, idx_a, idx_b):
+        split = ((counts[ia.long()], counts[ib.long()]) if use_split
+                 else (None, None))
+        cons.append(build_constraints(bodies_ext, ia, ib, man, cfg.dt,
+                                      *split, bias_max=cfg.bias_max))
+    con = tree_map(lambda *xs: torch.cat(xs, dim=0), *cons)
+    solve = solve_parallel if use_split else solve_sequential
+    v, omega = solve(con, bodies_ext, cfg.solver_iters, cfg.friction_mode)
+    return v, omega, con.valid
 
 
 def _top_terrain_rows(tman: Manifold, t_key2, kk: int):
@@ -656,6 +815,7 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     to the metrics, in the JAX package's flat layout."""
     n_tris = world.terrain.a.x.shape[0]
     _check_slice(cfg, world, n_tris)
+    rows_form = cfg.solver == "rows"
     fused = cfg.fused_iso
     iso_mode = cfg.shape_mode == "spheres"
     n_slots = 1 if iso_mode else 2
@@ -667,8 +827,9 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     sv = shape_view(state)
     light = cfg.light_metrics
     # type-partitioned mixed narrowphase (see cfg.n_sphere_rows): needs
-    # type-sorted bodies and a culled (or absent) terrain
-    split_mixed = (cfg.shape_mode == "mixed" and cfg.n_sphere_rows >= 0
+    # the rows solver, type-sorted bodies and a culled (or absent) terrain
+    split_mixed = (rows_form and cfg.shape_mode == "mixed"
+                   and cfg.n_sphere_rows >= 0
                    and (n_tris == 0 or cfg.terrain_bp in ("near", "grid")))
 
     # ---- broadphase: all pairs, packed grid, or the fat grid (cached or
@@ -715,7 +876,7 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
             overflow = torch.zeros((), dtype=torch.int32, device=dev)
         partner, pair_ok = broadphase.refine_pairs(bounds, cand,
                                                    cfg.max_pairs,
-                                                   ordered=False)
+                                                   ordered=not rows_form)
         if cfg.stable_pairs and cfg.broadphase == "packed":
             partner, pair_ok = _stable_sort_pairs(partner, pair_ok)
     elif cfg.bp_every > 1 and bp is not None:
@@ -799,10 +960,15 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     pair_manifold = prune(lc, max_contacts=n_slots, prox_sq=prox)
     max_pen = f32(0.0) if light else _deepest(pc)
 
-    # ---- terrain narrowphase: dense, or the "near" cull ----
+    # ---- terrain narrowphase: dense, the "near" cull or the face grid ----
+    t_reach_excess = f32(0.0)
     if n_tris > 0:
-        if cfg.terrain_bp == "near":
-            t_cand, t_ok = _near_terrain(world, state, cfg)
+        if cfg.terrain_bp in ("near", "grid"):
+            if cfg.terrain_bp == "near":
+                t_cand, t_ok = _near_terrain(world, state, cfg)
+            else:
+                t_cand, t_ok, t_reach_excess = _grid_terrain(world, state,
+                                                             cfg)
             if cfg.stable_pairs:
                 tb = 1 << 28
                 tcs = torch.sort(torch.where(t_ok, t_cand, tb), dim=1).values
@@ -841,6 +1007,47 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
         if not light:
             max_pen = torch.maximum(max_pen, _deepest(tc))
 
+    # what the step's tail reports, whichever solver runs
+    tail = dict(alive=alive, overflow=overflow, reach_excess=reach_excess,
+                span_excess=span_excess, t_reach_excess=t_reach_excess,
+                need=need, bp_drift_excess=bp_drift_excess,
+                pair_ok_t=pair_ok_t, max_pen=max_pen,
+                rows_dropped=torch.zeros((), dtype=torch.int32, device=dev),
+                warm_hit_frac=f32(0.0))
+    streams = None
+    if collect_contacts:
+        streams = dict(K=K, cols2=cols2, pc=pc)
+        if n_tris > 0:
+            streams.update(t_width=t_width, t_tris=t_tris, tc=tc)
+    if not fused:
+        # the body arrays extended by one virtual static row for the
+        # terrain (RigidBodyRef::Static, physics.rs:289-302)
+        srow = lambda g: torch.cat([g, torch.zeros(
+            (1,) + g.shape[1:], dtype=g.dtype, device=dev)], dim=0)
+        bodies_ext = BodyView(
+            x=Vec3(*(torch.cat([g, c.reshape(1)]) for g, c in zip(
+                state.x + state.delta, world.terrain_center))),
+            v=tree_map(srow, state.v), omega=tree_map(srow, state.omega),
+            restitution=srow(state.restitution),
+            friction=srow(state.friction),   # Static{friction: 0}, world.rs:247
+            inv_mass=srow(state.inv_mass),
+            inv_moment=tree_map(srow, state.inv_moment))
+    if not rows_form:
+        # ---- flat constraint list (reference single-direction form) ----
+        rows_idx = lambda w: torch.arange(n, dtype=torch.int32, device=dev)[
+            None, :].expand(w, n).reshape(-1)
+        manifolds, idx_a, idx_b = [pair_manifold], [rows_idx(K)], [
+            cols2.reshape(-1)]
+        if n_tris > 0:
+            manifolds.append(t_manifold)
+            idx_a.append(rows_idx(t_width))
+            idx_b.append(torch.full((t_width * n,), n, dtype=torch.int32,
+                                    device=dev))
+        v, omega, rc_valid = _flat_solve(cfg, manifolds, idx_a, idx_b,
+                                         bodies_ext, n)
+        return _finish(world, cfg, state, v, omega, rc_valid, tail,
+                       world.warm, new_bp, streams)
+
     # ---- scatter-free row constraints ----
     # row layout: [pair slot0 K | pair slot1 K | terrain slot0 C | terrain
     # slot1 C] (one slot block each for spheres)
@@ -866,16 +1073,22 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     man_rows = tree_map(lambda *xs: torch.cat(xs, dim=0), *blocks)
     partner_rows = torch.cat(partners, dim=0)
     key2_rows = torch.cat(key2s, dim=0)
+    if cfg.solver_rows and man_rows.valid.shape[0] > cfg.solver_rows:
+        # compact to the top-k valid rows per body (earliest TOI first):
+        # identical physics whenever a body has <= k contacts; beyond that
+        # the latest-TOI rows are dropped (counted in the metrics)
+        man_rows, partner_rows, key2_rows, tail["rows_dropped"] = \
+            _compact_rows(man_rows, partner_rows, key2_rows, cfg.solver_rows)
     rc_valid = man_rows.valid
-    warm_hit_frac = f32(0.0)
     new_warm = world.warm
 
     # TWO-BLOCK split (mixed): sphere columns can never hold slot-1 pair or
     # terrain rows (spheres emit one contact per pair) and their self
     # inertia is a scalar, so both the constraint build and the solve run
     # as: sphere block over its K + C live rows, then capsule block over
-    # all rows with Mat3 inertia
-    split_solve = split_mixed and not cfg.terrain_rows
+    # all rows with Mat3 inertia.  Compacted rows lose that layout.
+    split_solve = (split_mixed and not cfg.terrain_rows
+                   and not cfg.solver_rows)
     if split_solve:
         ns_b = cfg.n_sphere_rows
         C_t = t_width if n_tris > 0 else 0
@@ -904,16 +1117,6 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
         counts = torch.clamp(torch.cat([
             torch.sum(rc_valid, dim=0).to(torch.float32),
             torch.ones((1,), dtype=torch.float32, device=dev)]), min=1.0)
-        srow = lambda g: torch.cat([g, torch.zeros(
-            (1,) + g.shape[1:], dtype=g.dtype, device=dev)], dim=0)
-        bodies_ext = BodyView(
-            x=Vec3(*(torch.cat([g, c.reshape(1)]) for g, c in zip(
-                state.x + state.delta, world.terrain_center))),
-            v=tree_map(srow, state.v), omega=tree_map(srow, state.omega),
-            restitution=srow(state.restitution),
-            friction=srow(state.friction),   # Static{friction: 0}, world.rs:247
-            inv_mass=srow(state.inv_mass),
-            inv_moment=tree_map(srow, state.inv_moment))
         sv_in = (bodies_ext.v, bodies_ext.omega, bodies_ext.inv_mass)
         if iso_mode:
             rc, pt0 = build_row_constraints_iso(
@@ -1000,7 +1203,7 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     schedule = (cfg.solver_iters, cfg.solver_inner)
     if cfg.warm_start:
         if matched is not None:
-            warm_hit_frac = (
+            tail["warm_hit_frac"] = (
                 torch.sum((matched & rc_valid).to(torch.float32))
                 / torch.clamp(torch.sum(rc_valid.to(torch.float32)),
                               min=1.0))
@@ -1009,7 +1212,7 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
             # chunk stepper of driver.py clears adapt_schedule and picks
             # the schedule itself, two chunks late)
             thr, it2, in2 = cfg.adapt_schedule
-            if float(warm_hit_frac) >= thr:
+            if float(tail["warm_hit_frac"]) >= thr:
                 schedule = (int(it2), int(in2))
         v, omega, acc = run_solve(*schedule)
         new_warm = SolverWarm(partner=torch.where(rc_valid, partner_rows, -9),
@@ -1017,12 +1220,23 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
                               acc_t2=acc[2])
     else:
         v, omega, _ = run_solve(*schedule)
+    return _finish(world, cfg, state, v, omega, rc_valid, tail, new_warm,
+                   new_bp, streams)
 
+
+def _finish(world: World, cfg: WorldConfig, state: RigidBodyState, v, omega,
+            rc_valid, mv: dict, new_warm, new_bp, streams):
+    """The step's tail on every branch: the solved velocities into the
+    state, the metrics dict, and with ``streams`` the contact streams in
+    the JAX package's flat layout."""
+    n = state.n_bodies
+    dev = state.x.x.device
+    light = cfg.light_metrics
     # NOTE: ``delta`` keeps its pre-solve value, as in the JAX package
     vt = Vec3(*(c[:n] for c in v))
     ot = Vec3(*(c[:n] for c in omega))
     if light:
-        dv_norm = f32(0.0)
+        dv_norm = torch.zeros((), dtype=torch.float32, device=dev)
     else:
         dv = vt - state.v
         dv_norm = torch.sqrt(torch.sum(dv.x * dv.x + dv.y * dv.y
@@ -1032,29 +1246,33 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     num_contacts = (zero_i if light
                     else torch.sum(rc_valid).to(torch.int32))
     metrics = {
-        "num_alive": zero_i if light else torch.sum(alive).to(torch.int32),
-        "broadphase_overflow": overflow,
-        "broadphase_reach_excess": reach_excess,
-        "broadphase_span_excess": span_excess,
-        "terrain_reach_excess": f32(0.0),
-        "broadphase_rebuilt": need,
-        "broadphase_cache_drift_excess": bp_drift_excess,
+        "num_alive": zero_i if light else
+        torch.sum(mv["alive"]).to(torch.int32),
+        "broadphase_overflow": mv["overflow"],
+        "broadphase_reach_excess": mv["reach_excess"],
+        "broadphase_span_excess": mv["span_excess"],
+        "terrain_reach_excess": mv["t_reach_excess"],
+        "broadphase_rebuilt": mv["need"],
+        "broadphase_cache_drift_excess": mv["bp_drift_excess"],
         "num_pairs": zero_i if light else
-        torch.sum(pair_ok_t).to(torch.int32),
+        torch.sum(mv["pair_ok_t"]).to(torch.int32),
         "num_contacts": num_contacts,
         "num_constraints": rc_valid.numel(),
-        "solver_rows_dropped": zero_i,
-        "warm_hit_frac": warm_hit_frac,
-        "max_penetration": max_pen,
+        "solver_rows_dropped": mv["rows_dropped"],
+        "warm_hit_frac": mv["warm_hit_frac"],
+        "max_penetration": mv["max_pen"],
         "solver_dv_norm": dv_norm,
     }
-    if collect_contacts:
+    if streams:
         flat = lambda c: tree_map(lambda x: x.reshape(x.shape[0], -1), c)
         rows = lambda w: torch.arange(n, dtype=torch.int32, device=dev)[
             None, :].expand(w, n).reshape(-1)
-        metrics["pair_contacts"] = dict(i=rows(K), j=cols2.reshape(-1),
-                                        contact=flat(pc))
-        if n_tris > 0:
+        metrics["pair_contacts"] = dict(i=rows(streams["K"]),
+                                        j=streams["cols2"].reshape(-1),
+                                        contact=flat(streams["pc"]))
+        if "tc" in streams:
             metrics["terrain_contacts"] = dict(
-                i=rows(t_width), tri=t_tris.reshape(-1), contact=flat(tc))
+                i=rows(streams["t_width"]),
+                tri=streams["t_tris"].reshape(-1),
+                contact=flat(streams["tc"]))
     return world._replace(bodies=state, warm=new_warm, bp=new_bp), metrics

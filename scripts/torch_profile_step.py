@@ -12,19 +12,28 @@
   on the generic branch (type-partitioned narrowphase, two chained block
   solves, no hand-written kernel) through ``AdaptiveChunkStepper``;
 * ``capsules``: the demo ``capsules_scene(11)`` (1,331 capsules, 20
-  two-phase sweeps with Mat3 inertia).
+  two-phase sweeps with Mat3 inertia);
+* ``balls_seq`` / ``balls_par``: the demo on the reference's flat solvers,
+  ``solver="sequential"`` with its raw-lambda friction (kernel K4, one
+  launch per step) and ``solver="parallel"`` (mass-split Jacobi), both with
+  K2 on;
+* ``terrain``: ``terrain_scene(--bodies, default 10,000)``, spheres and
+  capsules raining onto the 10,368-face heightfield (the face-grid cull,
+  ``solver_rows=14``; no hand-written kernel).
 
 Steps the scene in chunks of ``--chunk`` (light interior metrics) for
 ``--warmup`` steps, times ``--steps`` more with the host clock
 (synchronised per chunk), then traces one more chunk with
 ``torch.profiler`` and prints: steps/s, device busy share of the traced
 window (sum of kernel times over wall time), device operations per step,
-the K1 and K2 shares, and the top kernels by device time.  The full table
+the K1, K2 and K4 shares, and the top kernels by device time.  The full table
 goes to ``--out``.
 
     python3 scripts/torch_profile_step.py --bodies 100000 --warmup 600
     python3 scripts/torch_profile_step.py --scene cold20 --warmup 180
     python3 scripts/torch_profile_step.py --scene mixed
+    python3 scripts/torch_profile_step.py --scene balls_seq --steps 64
+    python3 scripts/torch_profile_step.py --scene terrain --warmup 160
 
 Needs a CUDA card; imports no JAX.
 """
@@ -45,13 +54,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from mgf_tpu_torch.driver import (  # noqa: E402
     AdaptiveChunkStepper, make_chunk_step,
 )
-from mgf_tpu_torch.ops import narrowphase, solver_sweep  # noqa: E402
+from mgf_tpu_torch.ops import (  # noqa: E402
+    narrowphase, sequential_solve, solver_sweep,
+)
 from mgf_tpu_torch.scenes import (  # noqa: E402
-    balls_scene, capsules_scene, stress_scene,
+    balls_scene, capsules_scene, stress_scene, terrain_scene,
 )
 
 WARMUP = {"flagship": 600, "cold20": 180, "balls": 280, "mixed": 256,
-          "capsules": 280}
+          "capsules": 280, "balls_seq": 280, "balls_par": 280,
+          "terrain": 160}
 
 
 class _Plain:
@@ -70,9 +82,20 @@ def _stepper(scene, bodies, chunk):
     if scene == "balls":
         world, cfg = balls_scene(11)
         return world, _Plain(cfg._replace(pallas_narrowphase=True), chunk)
+    if scene in ("balls_seq", "balls_par"):
+        seq = scene == "balls_seq"
+        world, cfg = balls_scene(11, solver="sequential" if seq
+                                 else "parallel")
+        cfg = cfg._replace(pallas_narrowphase=True,
+                           friction_mode="mgf" if seq else cfg.friction_mode)
+        return world, _Plain(cfg, chunk)
+    if scene == "terrain":
+        world, cfg = terrain_scene(bodies or 10_000)
+        return world, _Plain(cfg, chunk)
     if scene == "capsules":
         world, cfg = capsules_scene(11)
         return world, _Plain(cfg, chunk)
+    bodies = bodies or 100_000
     if scene == "mixed":
         world, cfg = stress_scene(bodies, mixed=True)
         return world, AdaptiveChunkStepper(cfg, chunk=chunk, light=True)
@@ -90,8 +113,8 @@ class _Guards:
     """The physics guards over every step run so far: the worst bucket
     overflow and the first step that had any, the worst cache drift excess,
     the deepest penetration among the steps that report it (the last of
-    each chunk), and at the end the bodies below y = -1 or outside the
-    terrain's x/z extent."""
+    each chunk), and at the end the bodies more than 1 below the terrain's
+    lowest point or outside its x/z extent."""
 
     def __init__(self):
         self.steps, self.over, self.first, self.drift = 0, 0, None, 0.0
@@ -113,7 +136,8 @@ class _Guards:
     def line(self, world):
         b, t = world.bodies, world.terrain
         wall = max(float(c.abs().max()) for v in t for c in (v.x, v.z))
-        out = (b.x.y < -1.0) | (b.x.x.abs() > wall) | (b.x.z.abs() > wall)
+        floor = min(float(v.y.min()) for v in t) - 1.0
+        out = (b.x.y < floor) | (b.x.x.abs() > wall) | (b.x.z.abs() > wall)
         return (f"guards over {self.steps} steps: overflow worst step "
                 f"{self.over} (first at step {self.first}), drift excess "
                 f"{self.drift}, deepest chunk-end penetration {self.pen:.4f} "
@@ -130,10 +154,13 @@ def _dev_time(ev):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=sorted(WARMUP), default="flagship")
-    ap.add_argument("--bodies", type=int, default=100_000)
+    ap.add_argument("--bodies", type=int, default=None,
+                    help="bodies of the piles (default 100,000) and of "
+                         "the terrain scene (default 10,000)")
     ap.add_argument("--warmup", type=int, default=None,
                     help="steps before timing (default: 600 flagship, "
-                         "180 cold20, 280 balls, 256 mixed, 280 capsules)")
+                         "180 cold20, 280 balls, balls_seq, balls_par and "
+                         "capsules, 256 mixed, 160 terrain)")
     ap.add_argument("--steps", type=int, default=128)
     ap.add_argument("--chunk", type=int, default=16)
     ap.add_argument("--out", default="build/profile_torch.txt")
@@ -178,6 +205,7 @@ def main():
             torch.profiler.ProfilerActivity.CUDA]
     solver_sweep.LAUNCHES = 0
     narrowphase.LAUNCHES = 0
+    sequential_solve.LAUNCHES = 0
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         world, m = st.step_chunk(world)
@@ -191,6 +219,7 @@ def main():
     share = lambda tag: sum(e.time_range.elapsed_us() for e in kernels
                             if tag in e.name)
     k1_us, k2_us = share("solver_sweep"), share("sphere_contact")
+    k4_us = share("sequential_solve")
     print(f"traced {args.chunk} steps ({rebuilt} rebuilds): wall "
           f"{1e3 * wall:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
           f"({100.0 * busy_us / (1e6 * wall):.1f}% busy), "
@@ -198,7 +227,9 @@ def main():
           f"{k1_us / 1e3:.2f} ms ({solver_sweep.LAUNCHES} launches, "
           f"{100.0 * k1_us / max(busy_us, 1):.1f}% of device time), K2 "
           f"{k2_us / 1e3:.2f} ms ({narrowphase.LAUNCHES} launches, "
-          f"{100.0 * k2_us / max(busy_us, 1):.1f}% of device time)")
+          f"{100.0 * k2_us / max(busy_us, 1):.1f}% of device time), K4 "
+          f"{k4_us / 1e3:.2f} ms ({sequential_solve.LAUNCHES} launches, "
+          f"{100.0 * k4_us / max(busy_us, 1):.1f}% of device time)")
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=40)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -1,7 +1,8 @@
 """Kernels K1 (mgf_tpu_torch/ops/csrc/solver_sweep.cu in term and gather
-mode), K3 (the same kernel over the block-major layout) and K2
-(ops/csrc/sphere_contact.cu) against their plain PyTorch versions on the
-card.  Runs only where CUDA is available:
+mode), K3 (the same kernel over the block-major layout), K2
+(ops/csrc/sphere_contact.cu) and K4 (ops/csrc/sequential_solve.cu) against
+their plain PyTorch versions on the card.  Runs only where CUDA is
+available:
 each test takes the ``cuda_device`` fixture, which skips without a card
 (decided at run time, never at import).
 
@@ -9,7 +10,10 @@ Tolerances: K1/K3 atol 2e-4 / rtol 1e-4 (as tests/test_solver_sweep.py):
 the kernel sums rows sequentially with fused multiply-adds, the plain
 version through torch reductions in another order.  K2: valid exactly, t
 and n atol 1e-4, witness points atol 1e-3 (tests/test_ops_native.py's
-gate; rsqrtf is approximate).
+gate; rsqrtf is approximate).  K4 against its plain version run on CPU
+copies of the same inputs: v and omega atol 1e-4 + rtol 1e-5 (both round
+every product and sum once, in the same order, except that the plain
+version's three-term sums are torch reductions).
 """
 
 import numpy as np
@@ -18,6 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from mgf_tpu_torch.ops import narrowphase as nph  # noqa: E402
+from mgf_tpu_torch.ops import sequential_solve as seq  # noqa: E402
 from mgf_tpu_torch.ops import solver_sweep as ss  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -195,3 +200,102 @@ def test_sphere_contact_rejects_bad_inputs(cuda_device):
         nph.sphere_contact_pairs(ga, gb.cpu())
     with pytest.raises(ValueError):
         nph.sphere_contact_pairs(ga[:, :32], gb)
+
+
+def _landing_inputs(dev, steps=141):
+    """K4's inputs at the 126-body balls_scene(5) landing: the port steps
+    the demo with the parallel flat solver (no K4) for ``steps`` steps,
+    then one sequential step records its constraint list (at 141 steps the
+    block hits the floor: 117 valid points, velocities change by ~45)."""
+    from mgf_tpu_torch import world as tworld
+    from mgf_tpu_torch.scenes import balls_scene
+
+    world, cfg = balls_scene(5, device=dev)
+    par = cfg._replace(solver="parallel")
+    for _ in range(steps):
+        world, _ = tworld.step(world, par)
+    return seq.capture_inputs(
+        lambda: tworld.step(world, cfg._replace(solver="sequential")))[0]
+
+
+def _k4_vs_plain(inp, iters, mgf):
+    before = seq.LAUNCHES
+    out = seq.sequential_solve(inp["pts"], inp["a"], inp["b"], inp["valid"],
+                               inp["bodies"], iters, mgf)
+    assert seq.LAUNCHES == before + 1
+    cpu = {k: v.cpu() for k, v in inp.items() if torch.is_tensor(v)}
+    ref = seq.sequential_solve(cpu["pts"], cpu["a"], cpu["b"], cpu["valid"],
+                               cpu["bodies"], iters, mgf)
+    assert seq.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (inp["bodies"].shape[0], 6)
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-5)
+    return out.cpu(), ref
+
+
+@pytest.mark.parametrize("mgf", [False, True])
+def test_sequential_kernel_matches_plain(cuda_device, mgf):
+    inp = _landing_inputs(cuda_device)
+    n_valid = int(inp["valid"].sum())
+    assert 50 < n_valid < inp["valid"].numel()
+    out, ref = _k4_vs_plain(inp, 20, mgf)
+    # the solve moved the landing bodies
+    assert float((out[:, :3] - inp["bodies"][:, :3].cpu()).abs().max()) > 0.1
+
+
+def test_sequential_kernel_all_invalid(cuda_device):
+    inp = _landing_inputs(cuda_device, steps=1)
+    inp["valid"] = torch.zeros_like(inp["valid"])
+    out, _ = _k4_vs_plain(inp, 20, False)
+    assert torch.equal(out, inp["bodies"][:, :6].cpu())
+
+
+def _random_inputs(C, M, dev, seed=0):
+    """C points over M bodies (the last one static), all valid but every
+    seventh, with unit normals and tangents, Mat3 inverse inertia."""
+    rng = np.random.default_rng(seed)
+    n = rng.standard_normal((C, 3))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    t1 = np.cross(n, [1.0, 0.1, -0.2])
+    t1 /= np.linalg.norm(t1, axis=1, keepdims=True)
+    t2 = np.cross(n, t1)
+    pts = np.concatenate([rng.standard_normal((C, 6)) * 0.4, n, t1, t2,
+                          rng.uniform(0.3, 0.8, (C, 1)),
+                          rng.uniform(0.0, 1.0, (C, 1)),
+                          rng.uniform(0.2, 0.6, (C, 3))], axis=1)
+    a = rng.integers(0, M - 1, C)
+    b = (a + rng.integers(1, M, C)) % M
+    q = np.linalg.qr(rng.standard_normal((M, 3, 3)))[0]
+    inertia = np.einsum("mij,mj,mkj->mik", q, rng.uniform(0.5, 2.0, (M, 3)),
+                        q).reshape(M, 9)
+    bodies = np.concatenate([rng.standard_normal((M, 6)),
+                             rng.uniform(0.5, 1.5, (M, 1)), inertia], axis=1)
+    bodies[-1] = 0.0
+    t = lambda x, dt: torch.as_tensor(np.ascontiguousarray(x).astype(dt),
+                                      device=dev)
+    return dict(pts=t(pts, np.float32), a=t(a, np.int32), b=t(b, np.int32),
+                valid=t(np.arange(C) % 7 != 3, np.bool_),
+                bodies=t(bodies, np.float32))
+
+
+@pytest.mark.parametrize("C,M", [(1000, 50), (257, 9), (1, 2),
+                                 (9000, 3000), (600, 6000)])
+def test_sequential_kernel_shapes(cuda_device, C, M):
+    """C not a multiple of the block's 256 threads; the accumulators past
+    the shared memory left after 3,000 bodies (9,000 points); the bodies
+    past the shared memory (6,000)."""
+    out, _ = _k4_vs_plain(_random_inputs(C, M, cuda_device), 3, False)
+    assert torch.equal(out[-1], torch.zeros(6))          # the static row
+
+
+def test_sequential_kernel_rejects_bad_inputs(cuda_device):
+    inp = _random_inputs(64, 8, cuda_device)
+    with pytest.raises(ValueError):
+        seq.sequential_solve(inp["pts"], inp["a"], inp["b"], inp["valid"],
+                             inp["bodies"].cpu(), 2, False)
+    with pytest.raises(TypeError):
+        seq.sequential_solve(inp["pts"], inp["a"].long(), inp["b"],
+                             inp["valid"], inp["bodies"], 2, False)
+    with pytest.raises(ValueError):
+        seq.sequential_solve(inp["pts"][:, :19].contiguous(), inp["a"],
+                             inp["b"], inp["valid"], inp["bodies"], 2, False)

@@ -161,9 +161,13 @@ def test_solve_rows_rejects_unsupported_modes():
     with pytest.raises(ValueError):
         tsol.solve_rows(trc, tb[0], tb[1], tb[2], tb[3], 2, two_phase=True,
                         pallas_inner=True)
-    with pytest.raises(NotImplementedError):
-        tsol.solve_rows(trc, tb[0], tb[1], tb[2], tb[3], 2,
-                        friction_mode="mgf")
+    # the reference's raw-lambda friction runs in the plain sweeps only
+    v_m, _ = tsol.solve_rows(trc, tb[0], tb[1], tb[2], tb[3], 2,
+                             friction_mode="mgf")
+    assert all(bool(torch.isfinite(c).all()) for c in v_m)
+    with pytest.raises(ValueError):
+        tsol.solve_rows(trc, tb[0], tb[1], tb[2], tb[3], 2, two_phase=False,
+                        friction_mode="mgf", pallas_inner=True)
     # Mat3 inertia runs in the plain sweeps, and the kernel, which is
     # scalar-inertia and whole-width, refuses it and a column offset
     iso = tb[3]

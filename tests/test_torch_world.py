@@ -366,16 +366,18 @@ def test_bp_every_trajectory_parity_settled(settled):
 def test_off_slice_configs_raise(settled):
     world, cfg = settled
     for bad in (cfg._replace(profile_stage="pairs"),
-                cfg._replace(terrain_bp="grid"),
-                cfg._replace(solver="parallel"),
                 cfg._replace(broadphase="fat8x4"),
                 cfg._replace(bp_margin=0.5)):
         with pytest.raises(NotImplementedError, match="ROADMAP slice"):
             step(world, bad)
-    # the JAX package's own guards: the fused branch is for spheres, and
-    # the hybrid match needs canonical slots
+    # the JAX package's own guards: the fused branch is for spheres and the
+    # rows solver, the hybrid match needs canonical slots, and the "grid"
+    # terrain cull needs the world's face table (the flat solvers and the
+    # face grid run since the reference-solver and mesh slices)
     for bad in (cfg._replace(shape_mode="mixed"),
-                cfg._replace(stable_pairs=False)):
+                cfg._replace(stable_pairs=False),
+                cfg._replace(solver="parallel"),
+                cfg._replace(terrain_bp="grid")):
         with pytest.raises(ValueError):
             step(world, bad)
     # warm starting off the fused branch and the mixed pile run since the

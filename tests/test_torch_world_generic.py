@@ -43,11 +43,16 @@ from mgf_tpu.world import step as j_step  # noqa: E402
 
 from mgf_tpu_torch import world_from_numpy, world_to_numpy  # noqa: E402
 from mgf_tpu_torch import world as tworld  # noqa: E402
+from mgf_tpu_torch.broadphase import GridConfig  # noqa: E402
+from mgf_tpu_torch.compound import compound_from_parts  # noqa: E402
 from mgf_tpu_torch.manifold import Manifold  # noqa: E402
 from mgf_tpu_torch.math3d import Vec3  # noqa: E402
+from mgf_tpu_torch.mesh import mesh_from_arrays  # noqa: E402
 from mgf_tpu_torch.physics import SceneBuilder  # noqa: E402
+from mgf_tpu_torch.scenes import _TERRAIN_FACES, _TERRAIN_VERTS  # noqa: E402
 from mgf_tpu_torch.scenes import balls_scene as t_balls_scene  # noqa: E402
 from mgf_tpu_torch.scenes import stress_scene as t_stress_scene  # noqa: E402
+from mgf_tpu_torch.scenes import terrain_scene as t_terrain_scene  # noqa: E402
 from mgf_tpu_torch.world import (  # noqa: E402
     WorldConfig, init_bp_cache, init_warm, make_world, step,
 )
@@ -328,14 +333,29 @@ def test_balls_contact_stream_parity():
 
 
 def test_generic_off_slice_configs_raise():
+    """The configurations still off the port's slices raise; those that
+    the flat solvers, the face grid and the row compaction brought in run
+    (finite velocities), and "grid" without a face table is refused as
+    mgf_tpu refuses it."""
     world, cfg = t_balls_scene(2, device=CPU)
-    for bad in (cfg._replace(solver_rows=8),
-                cfg._replace(broadphase="fat8x4"),
-                cfg._replace(bp_margin=0.5),
-                cfg._replace(terrain_bp="grid"),
-                cfg._replace(solver="sequential")):
+    for bad in (cfg._replace(broadphase="fat8x4"),
+                cfg._replace(bp_margin=0.5)):
         with pytest.raises(NotImplementedError):
             step(world, bad)
+    with pytest.raises(ValueError):
+        step(world, cfg._replace(terrain_bp="grid"))
+    tg = GridConfig(cell_size=4.0, dim=16, bucket_cap=8)
+    gworld = make_world(world.bodies, _TERRAIN_VERTS, _TERRAIN_FACES,
+                        terrain_center=(0.0, -10.0, 0.0),
+                        terrain_grid_cfg=tg, device=CPU)
+    for good, w in ((cfg._replace(solver_rows=8), world),
+                    (cfg._replace(terrain_bp="grid", terrain_grid_cfg=tg),
+                     gworld),
+                    (cfg._replace(solver="sequential"), world),
+                    (cfg._replace(solver="parallel"), world)):
+        w2, m = step(w, good)
+        assert all(bool(torch.isfinite(c).all()) for c in w2.bodies.v)
+        assert int(m["solver_rows_dropped"]) == 0
 
 
 def test_entry_points_default_to_the_card():
@@ -343,8 +363,8 @@ def test_entry_points_default_to_the_card():
     the caller names a device; init_warm and init_bp_cache follow the
     world's own device."""
     cuda = torch.device("cuda")
-    for fn in (t_balls_scene, t_stress_scene, make_world,
-               SceneBuilder.build):
+    for fn in (t_balls_scene, t_stress_scene, t_terrain_scene, make_world,
+               SceneBuilder.build, mesh_from_arrays, compound_from_parts):
         assert inspect.signature(fn).parameters["device"].default == cuda
     world, cfg = t_balls_scene(2, device=CPU)
     w = init_bp_cache(init_warm(world, cfg), cfg)
