@@ -11,18 +11,24 @@ pile (the pair contact in CUDA kernel K2, ``ops/narrowphase.py``);
 capsules and the mixed pile on the generic branch; the reference's flat
 solvers (the sequential sweeps in CUDA kernel K4,
 ``ops/sequential_solve.py``); meshes, compounds and the heightfield
-``terrain_scene``.
+``terrain_scene``; the rest of the shape library (``geom``, ``bounds``,
+the ``collision`` predicates, ``ConvexMesh``), GJK/EPA on any pair of
+convex supports (``gjk``) and the world queries: AABB overlap and ray casts
+through the dense scans or the DDA grids (``queries``).  ``gjk`` and
+``queries`` run as plain PyTorch, as the JAX package runs them as plain
+``jnp``.
 
 The scene builders, ``make_world`` and ``SceneBuilder.build`` put their
 tensors on the CUDA card unless the caller names another ``device``.  This
 package imports neither ``jax`` nor ``mgf_tpu``.
 """
 
+from mgf_tpu_torch import gjk, queries
 from mgf_tpu_torch.bridge import world_from_numpy, world_to_numpy
 from mgf_tpu_torch.driver import AdaptiveChunkStepper, make_chunk_step
 from mgf_tpu_torch.scenes import balls_scene, stress_scene, terrain_scene
 from mgf_tpu_torch.world import World, WorldConfig, step
 
 __all__ = ["AdaptiveChunkStepper", "World", "WorldConfig", "balls_scene",
-           "make_chunk_step", "step", "stress_scene", "terrain_scene",
-           "world_from_numpy", "world_to_numpy"]
+           "gjk", "make_chunk_step", "queries", "step", "stress_scene",
+           "terrain_scene", "world_from_numpy", "world_to_numpy"]

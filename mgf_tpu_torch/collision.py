@@ -1,8 +1,10 @@
-"""Continuous narrowphase for spheres and capsules against each other and
-against planes, triangles and rectangles, branch-free on tensors.
+"""Narrowphase collision detection on tensors: overlap and containment
+tests, ray/segment intersections, and the continuous contacts of spheres and
+capsules against each other and against planes, triangles and rectangles.
 
-Counterpart of the sphere and capsule part of ``mgf_tpu.collision``
-(reference: collision.rs).  Every routine evaluates all of its cases and
+Counterpart of ``mgf_tpu.collision`` (reference: collision.rs); the
+generic convex contact (GJK + EPA) is in ``gjk``.  Every routine evaluates
+all of its cases and
 selects, returns fixed-shape results with validity masks and is batched
 over any tensor shape; routines that can emit two contacts (capsule vs
 triangle, parallel capsules under ``ends``) return a Contact with a leading
@@ -17,15 +19,15 @@ from typing import Callable, NamedTuple
 import torch
 
 from mgf_tpu_torch.geom import (
-    RECTANGLE_EDGES, TRIANGLE_EDGES, Capsule, Plane, Rectangle, Segment,
-    Sphere, Triangle, closest_pt_segment, closest_pts_seg,
+    AABB, OBB, RECTANGLE_EDGES, TRIANGLE_EDGES, Capsule, Plane, Rectangle,
+    Segment, Sphere, Triangle, closest_pt_segment, closest_pts_seg,
     plane_from_rectangle, plane_from_triangle, rectangle_vertices,
     segment_of_capsule, triangle_vertices,
 )
 from mgf_tpu_torch.math3d import (
     COLLISION_EPSILON, Quat, Vec3, clamp, cross, dot, magnitude, magnitude2,
     qrotate, quat_from_arc, safe_div, safe_normalize, safe_sqrt, tree_map,
-    vzeros_like, where_vec,
+    vabs, vzeros_like, where_vec,
 )
 
 _INF = float("inf")
@@ -97,6 +99,40 @@ def contact_stack_bcast(contacts) -> Contact:
                           for c in contacts])
 
 
+# Overlaps (collision.rs:17-68) ---------------------------------------------
+
+def overlap_aabb_aabb(a: AABB, b: AABB):
+    """collision.rs:22-28."""
+    d = vabs(a.c - b.c)
+    s = a.r + b.r
+    return (d.x <= s.x) & (d.y <= s.y) & (d.z <= s.z)
+
+
+def overlap_sphere_aabb(s: Sphere, box: AABB):
+    """collision.rs:37-61: squared distance from the center to the box."""
+    def axis(c, bc, br):
+        lo = c - (bc - br)
+        hi = c - (bc + br)
+        return torch.where(lo < 0.0, lo, torch.where(hi > 0.0, hi, 0.0))
+    ex = axis(s.c.x, box.c.x, box.r.x)
+    ey = axis(s.c.y, box.c.y, box.r.y)
+    ez = axis(s.c.z, box.c.z, box.r.z)
+    return ex * ex + ey * ey + ez * ez <= s.r * s.r
+
+
+def overlap_sphere_sphere(a: Sphere, b: Sphere):
+    """collision.rs:63-68."""
+    r = a.r + b.r
+    return magnitude2(b.c - a.c) <= r * r
+
+
+# Contains (collision.rs:74-147) --------------------------------------------
+
+def contains_plane_pt(p: Plane, pt: Vec3):
+    """collision.rs:79-83."""
+    return _approx_eq(dot(p.n, pt), p.d)
+
+
 def contains_triangle_pt(t: Triangle, pt: Vec3):
     """collision.rs:85-99 (u >= 0, v >= 0, u+v < 1)."""
     v = pt - t.a
@@ -128,12 +164,77 @@ def contains_rectangle_pt(r: Rectangle, pt: Vec3):
             & (torch.abs(dot(pt, r.u1)) <= r.e1))
 
 
+def contains_aabb_pt(box: AABB, pt: Vec3):
+    """collision.rs:114-119."""
+    d = vabs(box.c - pt)
+    return (d.x <= box.r.x) & (d.y <= box.r.y) & (d.z <= box.r.z)
+
+
+def contains_sphere_pt(s: Sphere, pt: Vec3):
+    """collision.rs:122-125."""
+    return magnitude2(pt - s.c) <= s.r * s.r
+
+
+def contains_aabb_aabb(a: AABB, b: AABB):
+    """collision.rs:129-134."""
+    return contains_aabb_pt(a, b.c + b.r) & contains_aabb_pt(a, b.c - b.r)
+
+
+def contains_sphere_sphere(a: Sphere, b: Sphere):
+    """collision.rs:139-147."""
+    r = a.r - b.r
+    return (a.r >= b.r) & (magnitude2(b.c - a.c) <= r * r)
+
+
+# Intersects: particle (ray dt=inf / segment dt=1) vs volumes
+# (collision.rs:164-373) -----------------------------------------------------
+
 def intersect_plane(pos: Vec3, d: Vec3, dt, plane: Plane) -> Intersection:
     """collision.rs:169-184."""
     denom = dot(plane.n, d)
     t = safe_div(plane.d - dot(plane.n, pos), denom)
     hit = (denom != 0.0) & (t > 0.0) & (t <= dt)
     return Intersection(p=pos + d * t, t=t, hit=hit)
+
+
+def intersect_triangle(pos, d, dt, tri: Triangle) -> Intersection:
+    """Particle vs polygon = plane hit + containment (collision.rs:186-200)."""
+    inter = intersect_plane(pos, d, dt, plane_from_triangle(tri))
+    return inter._replace(hit=inter.hit & contains_triangle_pt(tri, inter.p))
+
+
+def intersect_rectangle(pos, d, dt, rect: Rectangle) -> Intersection:
+    inter = intersect_plane(pos, d, dt, plane_from_rectangle(rect))
+    return inter._replace(hit=inter.hit & contains_rectangle_pt(rect,
+                                                                inter.p))
+
+
+def intersect_aabb(pos: Vec3, d: Vec3, dt, box: AABB) -> Intersection:
+    """Slab test (collision.rs:202-236)."""
+    def axis(p, dd, c, r):
+        par = torch.abs(dd) < COLLISION_EPSILON
+        out = par & (torch.abs(p - c) > r)
+        ood = safe_div(torch.ones_like(dd), dd)
+        t1 = (c - r - p) * ood
+        t2 = (c + r - p) * ood
+        lo = torch.where(par, -_INF, torch.minimum(t1, t2))
+        hi = torch.where(par, _INF, torch.maximum(t1, t2))
+        return lo, hi, out
+    lx, hx, ox = axis(pos.x, d.x, box.c.x, box.r.x)
+    ly, hy, oy = axis(pos.y, d.y, box.c.y, box.r.y)
+    lz, hz, oz = axis(pos.z, d.z, box.c.z, box.r.z)
+    t_min = torch.clamp(torch.maximum(torch.maximum(lx, ly), lz), min=0.0)
+    t_max = torch.minimum(torch.minimum(hx, hy), hz)
+    hit = (~(ox | oy | oz)) & (t_min <= t_max) & (t_min <= dt)
+    return Intersection(p=pos + d * t_min, t=t_min, hit=hit)
+
+
+def intersect_obb(pos, d, dt, box: OBB) -> Intersection:
+    """collision.rs:238-247: rotate the particle into the box frame, with
+    the reference's use of ``o.q`` directly (geom.rs:829-837)."""
+    p2 = qrotate(box.q, pos - box.c) + box.c
+    d2 = qrotate(box.q, d)
+    return intersect_aabb(p2, d2, dt, AABB(c=box.c, r=box.r))
 
 
 def intersect_sphere(pos: Vec3, d: Vec3, dt, s: Sphere) -> Intersection:
@@ -199,6 +300,11 @@ def intersect_capsule(pos: Vec3, d: Vec3, dt, cap: Capsule) -> Intersection:
     t = torch.where(parallel, par_t, t_gen)
     hit = torch.where(parallel, par_ok, ok_gen)
     return Intersection(p=pos + d * t, t=t, hit=hit)
+
+
+def intersect_moving_sphere(pos, d, dt, s: Sphere, v: Vec3) -> Intersection:
+    """collision.rs:361-373: identical to a capsule along the sweep."""
+    return intersect_capsule(pos, d, dt, Capsule(a=s.c, d=v, r=s.r))
 
 
 def contact_plane_moving_sphere(p: Plane, s: Sphere, v: Vec3) -> Contact:
@@ -761,3 +867,12 @@ def contact_moving_static(contact_fn: Callable, shape_a, v_a: Vec3,
     """Moving receiver vs static argument (collision.rs:1368-1382)."""
     c = contact_fn(shape_a, shape_b, -v_a)
     return contact_advect(c, v_a * c.t)
+
+
+def local_contact(c: Contact, center_a: Vec3, v_a: Vec3, center_b: Vec3,
+                  v_b: Vec3) -> LocalContact:
+    """Per-body local contact points at the TOI (collision.rs:1508-1532):
+    local = global - (center + v * t)."""
+    return LocalContact(local_a=c.a - (center_a + v_a * c.t),
+                        local_b=c.b - (center_b + v_b * c.t),
+                        contact=c)

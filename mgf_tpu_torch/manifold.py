@@ -18,7 +18,7 @@ import torch
 from mgf_tpu_torch.collision import LocalContact
 from mgf_tpu_torch.geom import compute_basis
 from mgf_tpu_torch.math3d import (
-    COLLISION_EPSILON, Vec3, magnitude2, safe_div, where_vec,
+    COLLISION_EPSILON, Vec3, magnitude2, safe_div, tree_map, where_vec,
 )
 
 # manifold.rs:38
@@ -37,6 +37,11 @@ class Manifold(NamedTuple):
     local_a: Vec3       # (S, ...)
     local_b: Vec3       # (S, ...)
     valid: torch.Tensor  # (S, ...) bool
+
+
+def slot(tree, s):
+    """Select slot s of a leading-slot-axis NamedTuple of tensors."""
+    return tree_map(lambda x: x[s], tree)
 
 
 def prune(lc: LocalContact, max_contacts: int = MAX_CONTACTS,
@@ -121,3 +126,9 @@ def prune(lc: LocalContact, max_contacts: int = MAX_CONTACTS,
         local_b=stack(kept_lb),
         valid=torch.stack(kept_ok, dim=0),
     )
+
+
+def manifold_from_local_contact(lc: LocalContact) -> Manifold:
+    """Manifold::from(LocalContact) (manifold.rs:120-129): one point."""
+    return prune(tree_map(lambda x: x.unsqueeze(0), lc),
+                 max_contacts=MAX_CONTACTS)

@@ -19,6 +19,8 @@ import torch
 # Maximum tolerance for error (reference: geom.rs:27).
 COLLISION_EPSILON = 1e-6
 
+CUDA = torch.device("cuda")
+
 
 def tree_map(fn, *trees):
     """Apply ``fn`` leaf-wise across NamedTuples (nested) of tensors, the
@@ -85,6 +87,13 @@ class Vec3(NamedTuple):
         return self.x.shape
 
 
+def vec3(x, y, z, dtype=torch.float32, device=CUDA) -> Vec3:
+    """Vec3 from three numbers or tensors, broadcast to one shape."""
+    x, y, z = (torch.as_tensor(v, dtype=dtype, device=device)
+               for v in (x, y, z))
+    return Vec3(*torch.broadcast_tensors(x, y, z))
+
+
 def vsplat(s) -> Vec3:
     """Vec3 with all components equal to the scalar tensor s."""
     return Vec3(s, s, s)
@@ -93,6 +102,22 @@ def vsplat(s) -> Vec3:
 def vzeros_like(v: Vec3) -> Vec3:
     return Vec3(torch.zeros_like(v.x), torch.zeros_like(v.y),
                 torch.zeros_like(v.z))
+
+
+def vfrom(a, device=CUDA) -> Vec3:
+    """(..., 3) array or tensor -> Vec3 on ``device``."""
+    a = torch.as_tensor(a, device=device)
+    return Vec3(a[..., 0], a[..., 1], a[..., 2])
+
+
+def vto(v: Vec3):
+    """Vec3 -> (..., 3) tensor (host/boundary use)."""
+    return torch.stack(torch.broadcast_tensors(v.x, v.y, v.z), dim=-1)
+
+
+def vmul(a: Vec3, b: Vec3) -> Vec3:
+    """Elementwise (Hadamard) product."""
+    return Vec3(a.x * b.x, a.y * b.y, a.z * b.z)
 
 
 def dot(a: Vec3, b: Vec3):
@@ -117,11 +142,15 @@ def normalize(v: Vec3) -> Vec3:
     return v * (1.0 / magnitude(v))
 
 
-def safe_normalize(v: Vec3) -> Vec3:
+def safe_normalize(v: Vec3, fallback: Vec3 | None = None, eps=0.0) -> Vec3:
+    """v / |v| where |v| > eps; 0 there, or ``fallback`` where given."""
     m2 = magnitude2(v)
-    ok = m2 > 0.0
+    ok = m2 > eps * eps
     inv = torch.where(ok, 1.0 / safe_sqrt(torch.where(ok, m2, 1.0)), 0.0)
-    return v * inv
+    out = v * inv
+    if fallback is not None:
+        out = where_vec(ok, out, fallback)
+    return out
 
 
 def where_vec(cond, a: Vec3, b: Vec3) -> Vec3:
@@ -141,6 +170,15 @@ def vmax(a: Vec3, b: Vec3) -> Vec3:
 
 def vabs(v: Vec3) -> Vec3:
     return Vec3(torch.abs(v.x), torch.abs(v.y), torch.abs(v.z))
+
+
+def vclamp(v: Vec3, lo: Vec3, hi: Vec3) -> Vec3:
+    return vmin(vmax(v, lo), hi)
+
+
+def vall_le(a: Vec3, b: Vec3):
+    """componentwise a <= b, reduced with AND."""
+    return (a.x <= b.x) & (a.y <= b.y) & (a.z <= b.z)
 
 
 def perpendicular(v: Vec3) -> Vec3:
@@ -179,8 +217,31 @@ class Quat(NamedTuple):
         return Quat(self.w[idx], self.x[idx], self.y[idx], self.z[idx])
 
 
+def quat(w, x, y, z, dtype=torch.float32, device=CUDA) -> Quat:
+    """Quat from four numbers or tensors, broadcast to one shape."""
+    w, x, y, z = (torch.as_tensor(v, dtype=dtype, device=device)
+                  for v in (w, x, y, z))
+    return Quat(*torch.broadcast_tensors(w, x, y, z))
+
+
+def quat_identity(shape=(), dtype=torch.float32, device=CUDA) -> Quat:
+    one = torch.ones(shape, dtype=dtype, device=device)
+    zero = torch.zeros(shape, dtype=dtype, device=device)
+    return Quat(one, zero, zero, zero)
+
+
 def quat_from_sv(s, v: Vec3) -> Quat:
     return Quat(s, v.x, v.y, v.z)
+
+
+def qfrom(a, device=CUDA) -> Quat:
+    """(..., 4) wxyz array or tensor -> Quat on ``device``."""
+    a = torch.as_tensor(a, device=device)
+    return Quat(a[..., 0], a[..., 1], a[..., 2], a[..., 3])
+
+
+def qto(q: Quat):
+    return torch.stack(torch.broadcast_tensors(q.w, q.x, q.y, q.z), dim=-1)
 
 
 def qmul(p: Quat, q: Quat) -> Quat:
@@ -194,8 +255,12 @@ def qconj(q: Quat) -> Quat:
     return Quat(q.w, -q.x, -q.y, -q.z)
 
 
+def qnorm2(q: Quat):
+    return q.w * q.w + q.x * q.x + q.y * q.y + q.z * q.z
+
+
 def qnormalize(q: Quat) -> Quat:
-    m2 = q.w * q.w + q.x * q.x + q.y * q.y + q.z * q.z
+    m2 = qnorm2(q)
     ok = m2 > 0.0
     inv = torch.where(ok, 1.0 / safe_sqrt(torch.where(ok, m2, 1.0)), 0.0)
     out = q * inv
@@ -208,6 +273,11 @@ def qrotate(q: Quat, v: Vec3) -> Vec3:
     u = q.v
     t = cross(u, v) * 2.0
     return v + t * q.w + cross(u, t)
+
+
+def quat_from_axis_angle(axis: Vec3, angle) -> Quat:
+    half = 0.5 * torch.as_tensor(angle, device=axis.x.device)
+    return quat_from_sv(torch.cos(half), axis * torch.sin(half))
 
 
 def quat_from_arc(src: Vec3, dst: Vec3) -> Quat:
@@ -265,6 +335,11 @@ def mat_identity(shape=(), device=None, dtype=torch.float32) -> Mat3:
     return Mat3(one, zero, zero, zero, one, zero, zero, zero, one)
 
 
+def mat_zero(shape=(), device=CUDA, dtype=torch.float32) -> Mat3:
+    z = torch.zeros(shape, dtype=dtype, device=device)
+    return Mat3(z, z, z, z, z, z, z, z, z)
+
+
 def outer(a: Vec3, b: Vec3) -> Mat3:
     return Mat3(a.x * b.x, a.x * b.y, a.x * b.z,
                 a.y * b.x, a.y * b.y, a.y * b.z,
@@ -296,6 +371,19 @@ def mat_t(m: Mat3) -> Mat3:
 def mat_diag(x, y, z) -> Mat3:
     zero = torch.zeros_like(x)
     return Mat3(x, zero, zero, zero, y, zero, zero, zero, z)
+
+
+def mfrom(a, device=CUDA) -> Mat3:
+    """(..., 3, 3) array or tensor -> Mat3 on ``device``."""
+    a = torch.as_tensor(a, device=device)
+    return Mat3(a[..., 0, 0], a[..., 0, 1], a[..., 0, 2],
+                a[..., 1, 0], a[..., 1, 1], a[..., 1, 2],
+                a[..., 2, 0], a[..., 2, 1], a[..., 2, 2])
+
+
+def mto(m: Mat3):
+    parts = torch.broadcast_tensors(*m)
+    return torch.stack(parts, dim=-1).reshape(parts[0].shape + (3, 3))
 
 
 def mat_inv3(m: Mat3) -> Mat3:

@@ -12,8 +12,10 @@ Counterpart of the ``Mesh`` and ``MeshGrid`` part of ``mgf_tpu.mesh``
 
 Contacts against a Mesh are flipped so the mesh is the receiver
 (mesh.rs:127-134): a = point on the mesh, b = point on the other shape,
-n = -n_tri.  ``ConvexMesh`` and its support function serve GJK and come
-with that slice (ROADMAP slice 12).
+n = -n_tri.
+
+* :class:`ConvexMesh` — a closed convex point soup (mesh.rs:144-148) whose
+  support function serves GJK (``gjk``).
 """
 
 from __future__ import annotations
@@ -174,3 +176,46 @@ def mesh_grid_query(grid: MeshGrid, centers: Vec3):
                      * grid.dim + ((cz + dz) & mmask))
                 cols.append(grid.table[h.long()])
     return torch.cat(cols, dim=-1)
+
+
+class ConvexMesh(NamedTuple):
+    """Closed convex point soup: displacement + vertices (mesh.rs:144-148).
+    ``center`` is x + mean(verts) (mesh.rs:203-206)."""
+    x: Vec3
+    verts: Vec3   # (V,) components
+
+
+def convex_mesh_from_points(points, x=(0.0, 0.0, 0.0), *,
+                            device=CUDA) -> ConvexMesh:
+    """A convex mesh from numpy-like (V, 3) points, on ``device``."""
+    p = np.asarray(points, np.float32)
+    o = np.asarray(x, np.float32)
+    vec = lambda a: Vec3(*(torch.as_tensor(np.array(a[..., k]),
+                                           device=device) for k in range(3)))
+    return ConvexMesh(x=vec(o), verts=vec(p))
+
+
+def _centroid(v: Vec3) -> Vec3:
+    return Vec3(v.x.mean(), v.y.mean(), v.z.mean())
+
+
+def convex_mesh_center(cm: ConvexMesh) -> Vec3:
+    return cm.x + _centroid(cm.verts)
+
+
+def rotate_convex_mesh(cm: ConvexMesh, q) -> ConvexMesh:
+    """Rotate the vertices about the soup's centroid (mesh.rs:213-221)."""
+    c = _centroid(cm.verts)
+    return cm._replace(verts=qrotate(q, cm.verts - c) + c)
+
+
+def support_convex_mesh(cm: ConvexMesh, d: Vec3) -> Vec3:
+    """Linear-scan support (mesh.rs:224-235), batched over d's shape: the
+    (V,) x batch dot products reduce with argmax (the first maximum, as
+    ``jnp.argmax``)."""
+    batch = d.x.shape
+    col = lambda c: c.reshape((-1,) + (1,) * len(batch))
+    score = (col(cm.verts.x) * d.x + col(cm.verts.y) * d.y
+             + col(cm.verts.z) * d.z)                  # (V, *batch)
+    best = torch.argmax(score, dim=0)
+    return Vec3(cm.verts.x[best], cm.verts.y[best], cm.verts.z[best]) + cm.x

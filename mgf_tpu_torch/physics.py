@@ -82,6 +82,19 @@ def capsule_tensor(a: Vec3, d: Vec3, r, m) -> Mat3:
     return i + par * m
 
 
+def obb_tensor(c: Vec3, q: Quat, r: Vec3, m) -> Mat3:
+    """physics.rs:95-120."""
+    x, y, z = 2.0 * r.x, 2.0 * r.y, 2.0 * r.z
+    i_x = 1.0 / 12.0 * m * (y * y + z * z)
+    i_y = 1.0 / 12.0 * m * (x * x + z * z)
+    i_z = 1.0 / 12.0 * m * (x * x + y * y)
+    rot = quat_to_mat(q)
+    i = mat_mul(mat_mul(rot, mat_diag(i_x, i_y, i_z)), mat_t(rot))
+    ident = mat_identity(i_x.shape, device=i_x.device)
+    par = ident * dot(c, c) - outer(c, c)
+    return i + par * m
+
+
 def integrate(state: RigidBodyState, dt, iso: bool = False) -> RigidBodyState:
     """One semi-implicit Euler step (physics.rs:222-253):
     q += 0.5 (0, w dt) * q (normalized); world inverse inertia R I^-1 R^T;
@@ -122,6 +135,11 @@ def colliders(state):
     spheres = Sphere(c=state.x, r=state.shape_r)
     capsules = Capsule(a=state.x - d_half, d=d_half * 2.0, r=state.shape_r)
     return spheres, capsules
+
+
+def body_centers(state) -> Vec3:
+    """Collider centers (== x for both shapes by construction)."""
+    return state.x
 
 
 def _np_quat_from_arc_y(d):

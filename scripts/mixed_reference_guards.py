@@ -6,7 +6,9 @@ with ``--balls sequential|parallel`` the 1,332-ball demo on the flat
 reference solvers (chip_smoke.py [15] and [16]: the sequential one with the
 reference's raw-lambda friction, the parallel one with the demo's default);
 with ``--terrain N`` the heightfield scene ``terrain_scene(N)``
-(chip_smoke.py [17]).
+(chip_smoke.py [17]); with ``--gjk`` GJK/EPA (``contact_convex_convex_ex``
+and ``separation``, jitted) on bench.py's 8,192 OBB pairs against the f64
+SAT oracle (chip_smoke.py [19]'s ``GJK_REFERENCE``).
 
 Steps ``mgf_tpu.scenes.stress_scene(--bodies, mixed=True)`` with the JAX
 package on the CPU for ``--steps`` steps from the initial block and prints
@@ -22,12 +24,14 @@ y = -1 or outside the walls.
         --balls sequential --steps 280
     JAX_PLATFORMS=cpu python scripts/mixed_reference_guards.py \
         --terrain 2000 --steps 240
+    JAX_PLATFORMS=cpu python scripts/mixed_reference_guards.py --gjk
 
 Takes about 0.5 s per step at 8,000 bodies and 1.7 s at 30,000 on 8 CPU
 cores, after a 20-40 s compile; the capsules demo about 8 min at NUM = 5
 for 416 steps and over 40 min at NUM = 11.  The balls demo and the terrain
-scene print their step time.  Imports the JAX package only: nothing of the
-port.
+scene print their step time; ``--gjk`` takes about 80 s.  Imports the JAX
+package and, for ``--gjk``, chip_smoke.py's numpy pairs and SAT oracle:
+nothing of the port.
 """
 
 from __future__ import annotations
@@ -54,7 +58,11 @@ def main():
                     help="step balls_scene(11) on this flat solver instead")
     ap.add_argument("--terrain", type=int, default=0, metavar="N",
                     help="step terrain_scene(N) instead")
+    ap.add_argument("--gjk", action="store_true",
+                    help="GJK/EPA on bench.py's 8,192 OBB pairs instead")
     args = ap.parse_args()
+    if args.gjk:
+        return gjk_pairs()
 
     import jax
     from mgf_tpu.scenes import capsules_scene, stress_scene
@@ -200,6 +208,38 @@ def terrain(n_bodies, steps):
           f"worst {max(dropped)}")
     print(_series("broadphase overflow", over) + f"; at the last step "
           f"{over[-1]}")
+
+
+def gjk_pairs():
+    """mgf_tpu's contact and separation on chip_smoke.py [19]'s pairs, held
+    to the same SAT oracle."""
+    import jax
+    import jax.numpy as jnp
+    from chip_smoke import N_GJK, bench_obb_arrays, sat_depth, sat_oracle
+    from mgf_tpu.geom import OBB, support_obb
+    from mgf_tpu.gjk import contact_convex_convex_ex, separation
+    from mgf_tpu.math3d import Quat, Vec3
+    boxes = bench_obb_arrays(N_GJK)
+    a, b = (OBB(c=Vec3(*(jnp.asarray(c[:, k]) for k in range(3))),
+                q=Quat(*(jnp.asarray(q[:, k]) for k in range(4))),
+                r=Vec3(*(jnp.asarray(r[:, k]) for k in range(3))))
+            for c, q, r in boxes)
+
+    def run():
+        sa = lambda d: support_obb(a, d)
+        sb = lambda d: support_obb(b, d)
+        ones = jnp.ones(N_GJK, jnp.float32)
+        c, sat = contact_convex_convex_ex(sa, sb, ones)
+        dist, sep = separation(sa, sb, ones)
+        depth = ((c.b.x - c.a.x) * c.n.x + (c.b.y - c.a.y) * c.n.y
+                 + (c.b.z - c.a.z) * c.n.z)
+        return dict(valid=c.valid, sat=sat, depth=depth, dist=dist, sep=sep)
+    out = {k: np.asarray(v) for k, v in jax.jit(run)().items()}
+    depth_sat = sat_depth(*(x.astype(np.float64) for box in boxes
+                            for x in box))
+    print(f"mgf_tpu GJK/EPA on {N_GJK} OBB pairs on "
+          f"{jax.devices()[0].platform}: {sat_oracle(out, depth_sat)}, "
+          f"EPA-saturated lanes {int(out['sat'].sum())}")
 
 
 if __name__ == "__main__":

@@ -26,7 +26,7 @@ import torch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "mgf_tpu" or m.startswith("mgf_tpu."))
-print(json.dumps([len(names), bad, torch.cuda.is_initialized()]))
+print(json.dumps([names, bad, torch.cuda.is_initialized()]))
 """
 
 
@@ -35,10 +35,11 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, bad, cuda_init = json.loads(out.stdout.strip().splitlines()[-1])
+    names, bad, cuda_init = json.loads(out.stdout.strip().splitlines()[-1])
     assert bad == [], bad
     assert cuda_init is False
-    assert n_modules >= 20
+    assert len(names) >= 22
+    assert {"mgf_tpu_torch.gjk", "mgf_tpu_torch.queries"} <= set(names)
 
 
 _SMOKE_PROBE = """
