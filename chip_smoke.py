@@ -1,7 +1,10 @@
 """Smoke run of mgf_tpu_torch on one NVIDIA GPU: build the kernels, check
 them, drive the flagship path, the generic sphere branch, the mixed
-sphere/capsule pile, the capsules demo, the reference's flat solvers and
-the heightfield terrain scene, and check what comes out.
+sphere/capsule pile, the capsules demo, the reference's flat solvers, the
+heightfield terrain scene, GJK/EPA and the world queries, the broadphase
+variants, the refit cache, the stage probes, the capacity world with its
+surgery and checkpoint, the torch demos and the entry point, and check
+what comes out.
 
     python3 chip_smoke.py
 
@@ -25,10 +28,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
 4. the main path: stress_scene(100_000) stepped 128 steps by
    AdaptiveChunkStepper(chunk=16, light=True), with the physics guards
    checked and K1's launch count held to the solver's outer iterations
-   (one gather-mode launch per outer iteration)
+   (one gather-mode launch per outer iteration); its contacts at step 64
+   are [21]'s yardstick
    (every kernel's count is set to 0 before each path, [4], [7], [8],
-   [11], [13], [15], [16] and [17], and read after it; the kernels line
-   sums them);
+   [11], [13], [15]-[17] and [19]-[25], and read after it; the kernels
+   line sums them);
 5. kernel path against plain path end to end: an 8,000-body pile stepped
    40 steps on the card, copied to the CPU, then one more step on each;
 6. K2 against its plain version at P = 900,000 pairs (the cold pile's 9
@@ -140,7 +144,54 @@ Phases (each prints one line; any failure raises and exits non-zero):
     t within 1e-4; ``query_aabb`` on one box against a numpy recount; grid
     and dense rays/s (median of 5 calls), the most DDA iterations any ray
     took, and no launch of K1-K4;
-21. a JSON line of per-kernel results, then the result line.
+21. the broadphase variants on the flagship pile: stress_scene(100_000)
+    from scratch, 64 steps by AdaptiveChunkStepper(chunk=16) in each of
+    "fat" (width-8 rows, 27 cells, the scene's grid), "fat8" (width 8,
+    the sel8 octant) and "fat8x4" (width 4, sel8) on the sel8 grid of
+    mgf_tpu/scenes.py:255-261 (cell 2.4, cap 24, x/z dims by the scene's
+    rule, 16 cells in y): steps/s, rebuilds, contacts and max penetration
+    at step 64; overflow 0, drift excess 0, max penetration < 0.5,
+    contacts within 2 % of [4]'s at step 64, K1's launches equal to the
+    outer iterations; the reach excess at the chunks' full-metric steps 0
+    for "fat"; for the octant modes (guarantee: half a cell) it is printed
+    beside what mgf_tpu's own runs of them show in the same collapse
+    (``REACH_REFERENCE``: not 0 either), and the window is held to what the
+    excess could cost: at every chunk end, 0 pairs of a 27-cell build on
+    the same grid missing from the octant build where its row has a free
+    slot (both keeping 64 partners); then each
+    mode on an 8k pile, the card's step against the CPU's (contacts within
+    0.1 %, pair streams within 0.1 % of their entries, v and omega within
+    1e-3);
+22. the refit cache on [4]'s pile: bp_margin 0.1 and 0.5, each 64 steps
+    with bp_every=1 (a fresh cache), then 64 with bp_every=32: rebuilds,
+    reuse steps, and on every reuse step the cached list against a fresh
+    build of that step (a pair missing where the cached row has a free
+    slot is a miss, guarded at 0; pairs past a full row's top-9 are
+    printed); drift excess 0, reach excess 0, overflow 0; reuse steps at
+    the larger margin;
+23. the eight ``profile_stage`` prefixes on [4]'s pile: each probe (finite)
+    and the prefix's ms (median of 5, printed, not guarded); on an 8k pile
+    after 40 steps the card's eight probes against the CPU's ([5]'s
+    tolerances: counts within 0.1 %, the solve's velocities within 1e-3
+    each);
+24. world surgery at full size: [4]'s pile without its caches,
+    ``with_capacity(150_000)`` (past 2^17 rows: the float-score top-k),
+    ``init_warm``, ``init_bp_cache``; 64 steps, kill 1,000 live bodies
+    (every 100th), 16 steps, spawn 1,000 spheres above the pile, 64
+    steps: ``free_slots`` reuses the killed rows first, ``num_alive``
+    100,000 -> 99,000 -> 100,000, no tensor changes shape,
+    ``validate_world`` on the live bodies and
+    ``check_step_metrics(max_penetration=0.5)`` pass, overflow 0; then
+    ``save_world`` / ``load_world``: every leaf bit-equal, one step from
+    each within [5]'s tolerance, the file's size and the save and load
+    seconds;
+25. the torch demos as processes of their own: ``demos/balls_torch.py
+    --steps 60 --save --render`` (1,332 bodies, K2) and
+    ``demos/capsules_torch.py --steps 60 --render`` (1,331): exit 0, the
+    trajectory's shape (60, 1332, 3), the PPM headers, 61 K2 launches in
+    the balls run; then one call of ``entry()``'s step on the card, finite
+    metrics;
+26. a JSON line of per-kernel results, then the result line.
 
 Needs a CUDA card; it exits non-zero without one, and imports no JAX.
 """
@@ -182,6 +233,16 @@ K2_OPS_PER_PAIR = 170
 # ("textbook"); a negation folds into its consumer's operand and is not
 # counted
 K4_OPS_PER_UPDATE = {"mgf": 222, "textbook": 229}
+# K4's latency chain: the longest run of dependent float32 operations in
+# one point update of sequential_solve.cu (the relative velocity 5, the
+# tangent projection 4, the friction clamp 4 in "textbook" (add, max, min,
+# sub; 0 in "mgf"), the impulse 2, the angular update through the inverse
+# inertia 6, the second relative velocity 5, the normal projection 5, the
+# clamp and impulse 4, the angular update 6), each 4 cycles of latency on
+# Hopper's FP32 pipe, plus the next update's reload of the body it wrote
+# from shared memory (~30 cycles)
+K4_CHAIN_OPS = {"mgf": 37, "textbook": 41}
+K4_OP_CYCLES, K4_SMEM_CYCLES = 4, 30
 K4_TOL = dict(atol=1e-4, rtol=1e-5)
 N_TERRAIN = 10_000            # terrain_scene's default rain
 N_TERRAIN_E2E = 2_000
@@ -389,7 +450,7 @@ def phase_main_path(dev):
     chunk_s, last, rebuilds = [], None, 0
     overflow, drift = 0, 0.0
     _zero_counts()
-    for _ in range(n_chunks):
+    for k in range(n_chunks):
         t0 = time.perf_counter()
         world, m = st.step_chunk(world)
         torch.cuda.synchronize()
@@ -399,6 +460,8 @@ def phase_main_path(dev):
         overflow = max(overflow, int(m["broadphase_overflow"].max()))
         drift = max(drift, float(m["broadphase_cache_drift_excess"].max()))
         last = {k: v[-1] for k, v in m.items()}
+        if (k + 1) * chunk == 64:
+            contacts64 = int(last["num_contacts"])
     counts = _counts()
     launches = counts["K1"]
     b = world.bodies
@@ -415,7 +478,8 @@ def phase_main_path(dev):
           f"{sps_all:.2f} incl. first two), contacts {contacts}, max "
           f"penetration {pen:.4f}, rebuilds {rebuilds}, warm_hit_frac "
           f"{hit:.4f}, overflow {overflow}, drift excess {drift}, K1 "
-          f"launches {launches} (expected {expected})", flush=True)
+          f"launches {launches} (expected {expected}); contacts at step 64 "
+          f"{contacts64}", flush=True)
     check(finite, "non-finite x, v or omega")
     check(overflow == 0, f"broadphase overflow {overflow}")
     check(drift == 0.0, f"broadphase drift excess {drift}")
@@ -423,7 +487,7 @@ def phase_main_path(dev):
     check(pen < 0.5, f"max penetration {pen}")
     check(launches == expected and launches > 0,
           f"K1 launches {launches} != solver outer iterations {expected}")
-    return counts, world
+    return counts, world, cfg, contacts64
 
 
 def phase_end_to_end(dev):
@@ -798,6 +862,24 @@ def k4_bound(inp, iters, mgf):
     return bound(n_bytes, iters * nv * ops)
 
 
+def _sm_clock_mhz():
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return float(out.split()[0])
+
+
+def k4_latency_bound(n_updates, mgf):
+    """(ms, ns per update): K4's chain of ``n_updates`` dependent point
+    updates at the latency of each one's dependent float32 operations and
+    shared-memory reload, at the card's maximum SM clock."""
+    cycles = (K4_CHAIN_OPS["mgf" if mgf else "textbook"] * K4_OP_CYCLES
+              + K4_SMEM_CYCLES)
+    ns = 1e3 * cycles / _sm_clock_mhz()
+    return 1e-6 * ns * n_updates, ns
+
+
 def _record_sequential(seq, world, cfg):
     """K4's inputs in one sequential step of ``world``."""
     from mgf_tpu_torch.world import step
@@ -849,11 +931,13 @@ def phase_k4_small(seq, dev):
     plain_ms = _time_ms(lambda: _k4_run(seq, inp, iters, True, plain=True),
                         reps=1, blocks=3)
     b_ms, b_by = k4_bound(inp, iters, True)
+    chain_ms, chain_ns = k4_latency_bound(iters * nv, True)
     print(f"[14] K4 at the landing, friction mgf: kernel {ms}, "
           f"{1e6 * ms / (iters * nv):.1f} ns per valid point-update; plain "
           f"{plain_ms} (1 call a block: ~60 small launches per point "
           f"update); bound {b_ms:.6f} ms "
-          f"({b_by})", flush=True)
+          f"({b_by}); latency-chain bound {chain_ms:.4f} ms "
+          f"({chain_ns:.1f} ns per update)", flush=True)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by)
 
@@ -872,13 +956,16 @@ def phase_k4_demo(seq, k4, world, cfg):
     torch.testing.assert_close(out_k.cpu(), out_p, **K4_TOL)
     ms = _time_ms(lambda: _k4_run(seq, inp, iters, mgf), reps=5)
     b_ms, b_by = k4_bound(inp, iters, mgf)
+    chain_ms, chain_ns = k4_latency_bound(iters * nv, mgf)
     print(f"[14] K4 at the demo's list after [15] "
           f"({inp['bodies'].shape[0]} body rows, {inp['valid'].numel()} "
           f"points, {nv} valid, {iters} sweeps, friction "
           f"{'mgf' if mgf else 'textbook'}): kernel {ms}, "
           f"{1e6 * ms / (iters * max(nv, 1)):.1f} ns per valid point-update; vs "
           f"plain on the CPU max |dv| {ev:.3g}, |domega| {ew:.3g} (atol "
-          f"1e-4, rtol 1e-5); bound {b_ms:.6f} ms ({b_by})", flush=True)
+          f"1e-4, rtol 1e-5); bound {b_ms:.6f} ms ({b_by}); latency-chain "
+          f"bound {chain_ms:.4f} ms ({chain_ns:.1f} ns per update)",
+          flush=True)
     return dict(k4, err=max(k4["err"], ev, ew), ms=ms, bound_ms=b_ms,
                 bound_by=b_by, n_valid=nv)
 
@@ -1389,6 +1476,472 @@ def phase_queries(dev, pile):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# [21]-[25]: the broadphase variants, the refit cache, the stage probes,
+# the capacity world with its surgery and checkpoint, the demos and entry
+# ---------------------------------------------------------------------------
+
+# the sel8 octant grid of mgf_tpu/scenes.py:255-261: cell 2.4, cap 24
+SEL8_CELL, SEL8_CAP = 2.4, 24
+FAT_VARIANTS = ("fat", "fat8", "fat8x4")
+# [21]: each variant's contacts at step 64 within this share of [4]'s
+VARIANT_CONTACT_SHARE = 0.02
+# [21]: the pair reach excess mgf_tpu's own octant modes show in the same
+# collapse on the CPU (scripts/mixed_reference_guards.py --fat-variants,
+# 64 steps; the excess at step 64 and the worst step): the half-cell
+# guarantee of cell 2.4 is not met there either, so the octant's window
+# is held to the pairs it could miss, not to this metric
+REACH_REFERENCE = {3000: (0.025504, 0.045480), 8000: (0.050861, 0.077453)}
+N_CAPACITY = 150_000          # past 2^17 rows: the float-score top-k
+N_SURGERY = 1_000             # bodies killed, then spawned, in [24]
+STAGES = ("integrate", "pairs", "narrow", "terrain", "rows", "constraints",
+          "warm", "solve")
+# [22]: a margin of 0.1, and one whose drift trigger (margin / 2) passes
+# the fastest body's step on the pile, so that reuse steps happen
+BP_MARGINS = (0.1, 0.5)
+SMOKE_DIR = "build/smoke"     # [24]'s checkpoint, [25]'s demo outputs
+
+
+def _variant_cfg(world, cfg, mode):
+    """The flagship config in broadphase ``mode``: "fat" on the scene's own
+    grid, the octant modes on the sel8 grid, its x/z dims by the scene's
+    rule (the modulus past the box's span, mgf_tpu/scenes.py:265-267) and
+    16 cells in y."""
+    from mgf_tpu_torch.broadphase import GridConfig
+    cfg = cfg._replace(broadphase=mode)
+    if mode == "fat":
+        return cfg
+    wall = float(world.terrain.a.x.abs().max())
+    dim = 32
+    while dim * SEL8_CELL < 2.0 * wall + 10.0:
+        dim *= 2
+    return cfg._replace(grid=GridConfig(cell_size=SEL8_CELL,
+                                        dim=(dim, 16, dim),
+                                        bucket_cap=SEL8_CAP))
+
+
+def _stream_diff(m_g, m_c):
+    """The share of pair-stream entries (partner index or validity) in
+    which the card's step differs from the CPU's."""
+    pg, pc = m_g["pair_contacts"], m_c["pair_contacts"]
+    j_g, j_c = pg["j"].cpu(), pc["j"]
+    v_g, v_c = pg["contact"].valid.cpu(), pc["contact"].valid
+    return float(((j_g != j_c) | (v_g != v_c).any(0)).float().mean())
+
+
+def phase_fat_variants(dev, contacts64):
+    """[21] stress_scene(100_000) from scratch, 64 steps in each of the
+    broadphase modes fat / fat8 / fat8x4, then the card against the CPU on
+    an 8k pile in each."""
+    from mgf_tpu_torch import world_from_numpy, world_to_numpy
+    from mgf_tpu_torch.driver import AdaptiveChunkStepper
+    from mgf_tpu_torch.scenes import stress_scene
+    from mgf_tpu_torch.world import step
+    paths = []
+    for mode in FAT_VARIANTS:
+        world, cfg = stress_scene(N_MAIN, device=dev)
+        cfg = _variant_cfg(world, cfg, mode)
+        chunk, n_chunks = 16, 4
+        st = AdaptiveChunkStepper(cfg, chunk=chunk, light=True)
+        it2 = int(cfg.adapt_schedule[1])
+        expected, window, reach_ends = 0, [0, 0], []
+        _zero_counts()
+
+        def run(w, _ones):
+            nonlocal expected
+            w, m = st.step_chunk(w)
+            expected += chunk * (it2 if st.hot_on else cfg.solver_iters)
+            reach_ends.append(float(m["broadphase_reach_excess"][-1]))
+            if mode != "fat":
+                for k, v in enumerate(_window_misses(w, cfg)):
+                    window[k] += v
+            return w, m
+
+        world, chunk_s, rebuilds, overflow, drift, last = _run_chunks(
+            run, world, n_chunks, chunk)
+        counts = _counts()
+        overflow = max(overflow)
+        reach = max(reach_ends)
+        contacts = int(last["num_contacts"])
+        pen = float(last["max_penetration"])
+        sps = chunk * (n_chunks - 1) / sum(chunk_s[1:])
+        print(f"[21] stress_scene({N_MAIN}) broadphase={mode} grid "
+              f"{tuple(cfg.grid)}, 64 steps: {sps:.2f} steps/s (steps "
+              f"17-64), rebuilds {rebuilds}, contacts {contacts} ([4] at step "
+              f"64: {contacts64}), max penetration {pen:.4f}, overflow "
+              f"{overflow}, reach excess worst chunk end {reach}"
+              + ("" if mode == "fat" else
+                 f" (the octant covers half a cell; mgf_tpu's own run, "
+                 f"bodies: (at step 64, worst step) {REACH_REFERENCE}; "
+                 f"pairs of a 27-cell build of the same grid that the "
+                 f"octant lacks at the chunk ends: {window[0]}, and "
+                 f"{window[1]} past a full row)")
+              + f", drift excess {drift}, warm_hit_frac "
+              f"{float(last['warm_hit_frac']):.4f}, K1 launches "
+              f"{counts['K1']} (expected {expected})", flush=True)
+        check(_finite(world), f"{mode}: non-finite x, v or omega")
+        check(overflow == 0, f"{mode}: broadphase overflow {overflow}")
+        if mode == "fat":
+            check(reach == 0.0, f"{mode}: broadphase reach excess {reach}")
+        else:
+            # mgf_tpu's own octant runs pass the half-cell guarantee in the
+            # collapse too (REACH_REFERENCE): hold the window to what the
+            # excess could cost, a pair the 27-cell window finds
+            check(window[0] == 0, f"{mode}: the octant window missed "
+                  f"{window[0]} pairs")
+        check(drift == 0.0, f"{mode}: broadphase drift excess {drift}")
+        check(pen < 0.5, f"{mode}: max penetration {pen}")
+        check(abs(contacts - contacts64) <= VARIANT_CONTACT_SHARE * contacts64,
+              f"{mode}: contacts {contacts} vs [4]'s {contacts64}")
+        check(counts["K1"] == expected and expected > 0,
+              f"{mode}: K1 launches {counts['K1']} != {expected}")
+        paths.append(counts)
+        del world
+    for mode in FAT_VARIANTS:
+        world, cfg = stress_scene(N_E2E, device=dev)
+        one = _variant_cfg(world, cfg, mode)._replace(adapt_schedule=None)
+        for _ in range(40):
+            world, _ = step(world, one)
+        w_cpu = world_from_numpy(world_to_numpy(world), "cpu")
+        w_g, m_g = step(world, one, collect_contacts=True)
+        w_c, m_c = step(w_cpu, one, collect_contacts=True)
+        n_g, n_c = int(m_g["num_contacts"]), int(m_c["num_contacts"])
+        differ = _stream_diff(m_g, m_c)
+        err = max(float((a.cpu() - b).abs().max())
+                  for f in ("v", "omega")
+                  for a, b in zip(getattr(w_g.bodies, f),
+                                  getattr(w_c.bodies, f)))
+        print(f"[21] {N_E2E}-body pile, broadphase={mode}, after 40 card "
+              f"steps, one more step: contacts card {n_g} / cpu {n_c}, pair "
+              f"stream entries that differ {differ:.3g} (limit 1e-3), max "
+              f"|dv|,|domega| {err:.3g} (atol 1e-3)", flush=True)
+        check(n_c > 0 and abs(n_g - n_c) <= 0.001 * n_c,
+              f"{mode}: contact counts {n_g} vs {n_c}")
+        check(differ <= 1e-3, f"{mode}: pair streams differ in {differ}")
+        check(err <= 1e-3, f"{mode}: v/omega differ by {err}")
+    return paths
+
+
+def _fresh_pairs(world, cfg):
+    """The candidate list a fresh, uncached build makes in this step (the
+    step's own integrate and swept fat bounds, no cache slack)."""
+    from mgf_tpu_torch import broadphase
+    from mgf_tpu_torch import world as tw
+    from mgf_tpu_torch.physics import complete_motion, integrate
+    state = integrate(complete_motion(world.bodies), cfg.dt, iso=True)
+    bounds = broadphase.swept_fat_bounds(
+        tw._body_bounds(cfg, tw.shape_view(state)), state.delta, cfg.fatten)
+    partner, ok, _ = tw._fat_pairs(bounds, state.shape_r > 0.0, cfg)
+    return partner, ok
+
+
+def _window_misses(world, cfg):
+    """The next step's octant build against a 27-cell build on the same
+    grid (which covers reach up to a whole cell), both keeping 64
+    partners: (pairs the octant lacks where its row has a free slot,
+    pairs it lacks past a full row)."""
+    wide = cfg._replace(max_pairs=64, stable_pairs=False)
+    return _cache_misses(_fresh_pairs(world, wide._replace(broadphase="fat")),
+                         _fresh_pairs(world, wide))
+
+
+def _cache_misses(fresh, cached):
+    """(misses, cut): pairs of the fresh build that the cached list lacks
+    where the body's cached row has a free slot (a miss: the cached
+    candidate set was not conservative), and where its row is full (the
+    top-k cut of the build kept 9 partners that were closer then)."""
+    (fp, fok), (cp, cok) = fresh, cached
+    found = (fp[:, :, None] == torch.where(cok, cp, -2)[:, None, :]).any(-1)
+    lacking = fok & ~found
+    full = cok.all(dim=1, keepdim=True)
+    return int((lacking & ~full).sum()), int((lacking & full).sum())
+
+
+def phase_bp_margin(pile, cfg):
+    """[22] the refit cache on [4]'s pile: for each margin, 64 steps with
+    bp_every=1 (fresh cache), then 64 with bp_every=32; on every reuse
+    step the cached list is held against a fresh build of that step."""
+    from mgf_tpu_torch.world import init_bp_cache, step
+    world = pile
+    _zero_counts()
+    for margin in BP_MARGINS:
+        for every in (1, 32):
+            c = cfg._replace(bp_every=every, bp_margin=margin)
+            world = init_bp_cache(world, c)
+            rebuilds = reuse = misses = cut = 0
+            drift = reach = fastest = 0.0
+            t0 = time.perf_counter()
+            for _ in range(64):
+                fresh = _fresh_pairs(world, c)
+                world, m = step(world, c)
+                d = world.bodies.delta
+                fastest = max(fastest, float(torch.sqrt(
+                    d.x * d.x + d.y * d.y + d.z * d.z).max()))
+                if bool(m["broadphase_rebuilt"]):
+                    rebuilds += 1
+                else:
+                    reuse += 1
+                    mi, cu = _cache_misses(fresh, (world.bp.partner,
+                                                   world.bp.ok))
+                    misses += mi
+                    cut += cu
+                drift = max(drift, float(m["broadphase_cache_drift_excess"]))
+                reach = max(reach, float(m["broadphase_reach_excess"]))
+            torch.cuda.synchronize()
+            sps = 64 / (time.perf_counter() - t0)
+            print(f"[22] bp_margin={margin}, bp_every={every}, 64 steps on "
+                  f"[4]'s pile: rebuilds {rebuilds}, reuse steps {reuse}, "
+                  f"pairs of a fresh build missing from the cached list "
+                  f"{misses} (and {cut} past a full row's top-9), fastest "
+                  f"body {fastest:.4f} a step (the drift trigger: "
+                  f"{0.5 * margin}), drift excess {drift}, reach excess "
+                  f"{reach}, contacts {int(m['num_contacts'])}, max "
+                  f"penetration {float(m['max_penetration']):.4f}; "
+                  f"{sps:.2f} steps/s with the check", flush=True)
+            check(_finite(world), "bp_margin: non-finite x, v or omega")
+            check(drift == 0.0, f"bp_margin: drift excess {drift}")
+            check(reach == 0.0, f"bp_margin: reach excess {reach}")
+            check(int(m["broadphase_overflow"]) == 0, "bp_margin: overflow")
+            check(misses == 0, f"bp_margin: {misses} pairs missed by the "
+                  f"cache")
+            if margin == BP_MARGINS[-1]:
+                check(reuse > 0, f"bp_margin={margin}: no reuse step")
+    return _counts()
+
+
+def _probe_ms(world, cfg, stage, reps=5):
+    """(probe, median ms of ``reps`` timed calls) of one stage prefix."""
+    from mgf_tpu_torch.world import step
+    c = cfg._replace(profile_stage=stage)
+    step(world, c)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(world, c)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return m.get("probe"), float(np.median(times))
+
+
+def phase_probes(pile, cfg, dev):
+    """[23] the eight stage prefixes on [4]'s pile, timed; the probes of an
+    8k pile on the card against the CPU."""
+    from mgf_tpu_torch import world_from_numpy, world_to_numpy
+    from mgf_tpu_torch.scenes import stress_scene
+    from mgf_tpu_torch.world import step
+    one = cfg._replace(adapt_schedule=None)
+    parts = []
+    _zero_counts()
+    for stage in STAGES:
+        probe, ms = _probe_ms(pile, one, stage)
+        check(bool(torch.isfinite(probe.float())), f"probe {stage} {probe}")
+        parts.append(f"{stage} {probe.item():.6g} in {ms:.2f} ms")
+    full_ms = _probe_ms(pile, one, "")[1]
+    counts = _counts()
+    print(f"[23] stage prefixes on [4]'s pile (median of 5, the full step "
+          f"{full_ms:.2f} ms): " + "; ".join(parts), flush=True)
+    world, cfg8 = stress_scene(N_E2E, device=dev)
+    one8 = cfg8._replace(adapt_schedule=None)
+    for _ in range(40):
+        world, _ = step(world, one8)
+    w_cpu = world_from_numpy(world_to_numpy(world), "cpu")
+    worst = {}
+    n = world.bodies.n_bodies
+    for stage in STAGES:
+        c = one8._replace(profile_stage=stage)
+        g = step(world, c)[1]["probe"].cpu()
+        h = step(w_cpu, c)[1]["probe"]
+        d = abs(float(g) - float(h))
+        # [5]'s tolerances: counts within 0.1 %, each velocity within 1e-3
+        lim = (1e-3 * 2 * n if stage == "solve"
+               else 1e-3 * max(1.0, abs(float(h))))
+        worst[stage] = (float(g), float(h))
+        check(d <= lim, f"probe {stage}: card {float(g)} vs cpu {float(h)}")
+    print(f"[23] {N_E2E}-body pile after 40 card steps, probes card / cpu: "
+          + "; ".join(f"{k} {g:.6g} / {h:.6g}" for k, (g, h) in worst.items()),
+          flush=True)
+    return counts
+
+
+def _spawn_block(n, dev):
+    """``n`` spheres in two layers above the pile (y 16.5 and 17.75)."""
+    from mgf_tpu_torch.physics import SceneBuilder
+    per = n // 2
+    side = int(np.ceil(np.sqrt(per)))
+    i = np.arange(per)
+    layer = np.stack([(i // side - side / 2) * 1.25, np.zeros(per),
+                      (i % side - side / 2) * 1.25], -1)
+    pos = np.concatenate([layer + [0.0, 16.5, 0.0],
+                          layer + [0.0, 17.75, 0.0]]).astype(np.float32)
+    b = SceneBuilder()
+    b.add_spheres(pos, 0.5, mass=1.0, restitution=0.3, friction=0.6)
+    return b.build(dev)
+
+
+def phase_capacity(pile, cfg, dev):
+    """[24] [4]'s pile padded to a 150,000-row capacity world: 64 steps,
+    kill 1,000, 16 steps, spawn 1,000, 64 steps; validation, metrics
+    checks, and a checkpoint round trip."""
+    import os
+    from mgf_tpu_torch.driver import AdaptiveChunkStepper
+    from mgf_tpu_torch.utils import load_world, save_world
+    from mgf_tpu_torch.utils.debug import check_step_metrics, validate_world
+    from mgf_tpu_torch.world import (free_slots, init_bp_cache, init_warm,
+                                     kill_bodies, num_alive, remove_bodies,
+                                     spawn_bodies, step, with_capacity)
+    world = with_capacity(pile._replace(warm=None, bp=None), N_CAPACITY)
+    world = init_bp_cache(init_warm(world, cfg), cfg)
+    shapes = [tuple(t.shape) for t in _leaves(world)]
+    st = AdaptiveChunkStepper(cfg, chunk=16, light=True)
+    _zero_counts()
+    alive, overflow, sps = [num_alive(world)], 0, []
+
+    def run(w, n_chunks):
+        nonlocal overflow
+        t0 = time.perf_counter()
+        for _ in range(n_chunks):
+            w, m = st.step_chunk(w)
+            overflow = max(overflow, int(m["broadphase_overflow"].max()))
+        torch.cuda.synchronize()
+        sps.append(16 * n_chunks / (time.perf_counter() - t0))
+        return w, {k: v[-1] for k, v in m.items()}
+
+    world, m = run(world, 4)
+    killed = np.arange(0, N_MAIN, N_MAIN // N_SURGERY)[:N_SURGERY]
+    world = kill_bodies(world, killed)
+    alive.append(num_alive(world))
+    world, m = run(world, 1)
+    free = free_slots(world)
+    world, idx = spawn_bodies(world, _spawn_block(N_SURGERY, dev))
+    alive.append(num_alive(world))
+    world, m = run(world, 4)
+    counts = _counts()
+    same_shapes = [tuple(t.shape) for t in _leaves(world)] == shapes
+    live = remove_bodies(world, free_slots(world))._replace(warm=None,
+                                                            bp=None)
+    validate_world(live, cfg)
+    check_step_metrics(m, max_penetration=0.5)
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    path = os.path.join(SMOKE_DIR, "capacity_world.npz")
+    t0 = time.perf_counter()
+    save_world(path, world)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_world(path, world)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    size_mb = os.path.getsize(path) / 1e6
+    bit_equal = all(bool(torch.equal(a, b)) and a.dtype == b.dtype
+                    for a, b in zip(_leaves(world), _leaves(loaded)))
+    one = cfg._replace(adapt_schedule=None)
+    w_a, m_a = step(world, one)
+    w_b, m_b = step(loaded, one)
+    err = max(float((a - b).abs().max()) for f in ("v", "omega")
+              for a, b in zip(getattr(w_a.bodies, f), getattr(w_b.bodies, f)))
+    os.remove(path)
+    print(f"[24] capacity world {N_CAPACITY} rows from [4]'s pile: num_alive "
+          f"{' -> '.join(map(str, alive))}; {N_SURGERY} killed (every "
+          f"{N_MAIN // N_SURGERY}th), {N_SURGERY} spawned into rows "
+          f"{int(idx.min())}..{int(idx.max())} (the killed rows first: "
+          f"{bool(np.array_equal(idx, killed))}); steps/s {', '.join(f'{s:.2f}' for s in sps)} "
+          f"(64, 16, 64 steps); overflow worst step {overflow}; shapes "
+          f"unchanged {same_shapes}; contacts {int(m['num_contacts'])}, max "
+          f"penetration {float(m['max_penetration']):.4f}; checkpoint "
+          f"{size_mb:.1f} MB, save {save_s:.2f} s, load {load_s:.2f} s, "
+          f"bit-equal {bit_equal}, one step from each: contacts "
+          f"{int(m_a['num_contacts'])} / {int(m_b['num_contacts'])}, max "
+          f"|dv|,|domega| {err:.3g} (atol 1e-3)", flush=True)
+    check(alive == [N_MAIN, N_MAIN - N_SURGERY, N_MAIN],
+          f"num_alive {alive}")
+    check(np.array_equal(free[:N_SURGERY], killed)
+          and np.array_equal(idx, killed), "spawn did not reuse the killed "
+          "rows first")
+    check(same_shapes, "a tensor of the capacity world changed shape")
+    check(overflow == 0, f"capacity world: overflow {overflow}")
+    check(_finite(world), "capacity world: non-finite x, v or omega")
+    check(bit_equal, "checkpoint round trip is not bit-equal")
+    check(int(m_a["num_contacts"]) == int(m_b["num_contacts"]) and err <= 1e-3,
+          f"step from the loaded world differs by {err}")
+    check(counts["K1"] > 0, f"capacity world: K1 launches {counts}")
+    return counts
+
+
+def _leaves(world):
+    from mgf_tpu_torch.utils.checkpoint import _flatten_with_paths
+    return [t for _, t in _flatten_with_paths(world)]
+
+
+def _run_demo(script, *args):
+    """Run a torch demo in a fresh process; its stdout (exit code 0 is
+    checked)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, f"demos/{script}", *args],
+                         capture_output=True, text=True, env=env,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"{script} exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    return out.stdout, wall
+
+
+def _ppm_header(path):
+    with open(path, "rb") as fh:
+        return fh.read(15)
+
+
+def phase_demos_entry(dev):
+    """[25] both torch demos as processes of their own, 60 steps, and one
+    call of entry()'s step on the card."""
+    import os
+    import re as _re
+    from mgf_tpu_torch.entry import entry
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    traj, b_ppm = f"{SMOKE_DIR}/balls.npz", f"{SMOKE_DIR}/balls.ppm"
+    c_ppm = f"{SMOKE_DIR}/capsules.ppm"
+    out_b, wall_b = _run_demo("balls_torch.py", "--steps", "60", "--save",
+                              traj, "--render", b_ppm)
+    out_c, wall_c = _run_demo("capsules_torch.py", "--steps", "60",
+                              "--render", c_ppm)
+    x = np.load(traj)["x"]
+    k2 = int(_re.search(r"K2 (\d+)", out_b).group(1))
+    ms = [float(v) for v in _re.findall(r"took ([0-9.]+) ms", out_c)]
+    ms_b = [float(v) for v in _re.findall(r"took ([0-9.]+) ms", out_b)]
+    heads = (_ppm_header(b_ppm), _ppm_header(c_ppm))
+    fn, args = entry()
+    _zero_counts()
+    w_e, m_e = fn(*args)
+    counts = _counts()
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(torch.as_tensor(v).float()).all())
+                 for v in m_e.values())
+    print(f"[25] demos/balls_torch.py --steps 60: exit 0 in {wall_b:.1f} s, "
+          f"trajectory {x.shape}, median step {np.median(ms_b):.2f} ms, K2 "
+          f"launches {k2}; demos/capsules_torch.py --steps 60: exit 0 in "
+          f"{wall_c:.1f} s, median step {np.median(ms):.2f} ms; PPM headers "
+          f"{heads}; entry(): {args[0].bodies.n_bodies} bodies on "
+          f"{args[0].bodies.x.x.device}, contacts "
+          f"{int(m_e['num_contacts'])}, metrics finite {finite}",
+          flush=True)
+    n_b = x.shape[1] if x.ndim == 3 else -1
+    check(x.shape == (60, n_b, 3) and n_b == 1332,
+          f"balls trajectory shape {x.shape}")
+    check(k2 == 61, f"balls demo K2 launches {k2} != 61 (one per step)")
+    check(all(h == b"P6\n640 480\n255\n" for h in heads),
+          f"PPM headers {heads}")
+    check("capsules: 1331 capsules" in out_c, "capsules demo scene")
+    check(args[0].bodies.x.x.is_cuda and finite, "entry() step on the card")
+    for p in (traj, b_ppm, c_ppm):
+        os.remove(p)
+    # the demo processes' own launches ([25]'s path) beside entry()'s
+    demo = {k: sum(int(v) for v in _re.findall(rf"{k} (\d+)", o))
+            for k, o in (("K1", out_b + out_c), ("K2", out_b + out_c),
+                         ("K4", out_b + out_c))}
+    return {k: counts[k] + demo.get(k, 0) for k in counts}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1413,7 +1966,7 @@ def main():
     print(f"[2] kernels built in {wall_s:.2f} s wall, one nvcc per source "
           f"in parallel ({per_src})", flush=True)
     k1 = phase_kernel(ss, dev)
-    main_counts, pile = phase_main_path(dev)
+    main_counts, pile, pile_cfg, contacts64 = phase_main_path(dev)
     paths = [main_counts]
     phase_end_to_end(dev)
     k2 = phase_k2(nph, dev)
@@ -1435,7 +1988,12 @@ def main():
     phase_terrain_card_vs_cpu(dev)
     paths.append(phase_gjk(dev))
     paths.append(phase_queries(dev, pile))
+    paths += phase_fat_variants(dev, contacts64)
+    paths.append(phase_bp_margin(pile, pile_cfg))
+    paths.append(phase_probes(pile, pile_cfg, dev))
+    paths.append(phase_capacity(pile, pile_cfg, dev))
     del pile
+    paths.append(phase_demos_entry(dev))
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
     def row(name, source, replaces, n, r):
@@ -1447,7 +2005,7 @@ def main():
 
     # no single PyTorch call computes K1, K2, K3 or K4: library_ms is null.
     # launches: each kernel's count summed over the paths ([4], [7], [8],
-    # [15], [16]; [11], [13], [17], [19] and [20] launch none).  K1 in
+    # [15], [16], [21]-[25]; [11], [13], [17], [19] and [20] launch none).  K1 in
     # gather mode at the main path's settled shape (inner 6); K2 at the
     # cold pile's 900,000 pairs; K3 at block 1024, inner 8; K4 at the full
     # demo's constraint list (ms, bound) with plain_ms at the 126-body

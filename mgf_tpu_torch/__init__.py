@@ -14,8 +14,11 @@ solvers (the sequential sweeps in CUDA kernel K4,
 ``terrain_scene``; the rest of the shape library (``geom``, ``bounds``,
 the ``collision`` predicates, ``ConvexMesh``), GJK/EPA on any pair of
 convex supports (``gjk``) and the world queries: AABB overlap and ray casts
-through the dense scans or the DDA grids (``queries``).  ``gjk`` and
-``queries`` run as plain PyTorch, as the JAX package runs them as plain
+through the dense scans or the DDA grids (``queries``); every broadphase
+mode and cache, the stage probes, world surgery and the capacity world
+(``world``), checkpoints, slot tables, metrics and the debug mode
+(``utils``), and the entry point (``entry``).  ``gjk``, ``queries`` and
+``utils`` run as plain PyTorch, as the JAX package runs them as plain
 ``jnp``.
 
 The scene builders, ``make_world`` and ``SceneBuilder.build`` put their

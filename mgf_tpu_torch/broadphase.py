@@ -1,5 +1,4 @@
-"""Cell-grid broadphase (counterpart of the ``packed`` and ``fat27x4`` parts
-of ``mgf_tpu.broadphase``).
+"""Cell-grid broadphase (counterpart of ``mgf_tpu.broadphase``).
 
 **packed** (the generic branch): :func:`build_grid` bins body indices into
 a ``(ncell, bucket_cap)`` table; :func:`neighbor_candidates` gathers the
@@ -8,15 +7,17 @@ swept-AABB overlap and keeps the ``max_pairs`` closest.  ``lax.top_k``
 keeps the lower index among equal scores, and an unjittered lattice has
 many equal distances, so the selection is a stable descending sort.
 
-**fat27x4** (the flagship): bodies are binned by swept-AABB center into
-cells of side ``cell_size``, addressed modulo power-of-two grid
-dimensions: a dense
-``(ncell, bucket_cap * 4)`` float table whose bucket rows carry the
-occupants' centers and indices inline (component-blocked
-``[x*cap | y*cap | z*cap | idx*cap]``).  Building it is a stable sort +
-rank + scatter; candidates for a body are the bucket rows of its 27
-neighbor cells, culled by an AABB test and ranked by a fused int32 key
-(14-bit quantized distance | 17-bit body index).
+**fat grids** (the ``"fat"``, ``"fat8"``, ``"fat8x4"`` and ``"fat27x4"``
+broadphase modes): bodies are binned by swept-AABB center into cells of
+side ``cell_size``, addressed modulo power-of-two grid dimensions: a
+dense ``(ncell, bucket_cap * width)`` float table whose bucket rows carry
+the occupants' bounds and indices inline (width 8: per slot ``[cx cy cz
+r_eff idx 0 0 0]``; width 4: component-blocked ``[x*cap | y*cap | z*cap
+| idx*cap]``).  Building it is a stable sort + rank + scatter;
+candidates for a body are the bucket rows of its 27 neighbour cells (or
+of the 2x2x2 octant ``"sel8"``), culled by an AABB test and ranked by a
+fused int32 key (14-bit quantized distance | 17-bit body index), or past
+2^17 bodies by a float score.
 
 Bit-exactness with the JAX package rests on four details, each kept here:
 the sort is stable (ranks inside a bucket decide overflow); the run start
@@ -130,17 +131,22 @@ def pack_bounds(bounds: AABB):
     return torch.stack([bounds.c.x, bounds.c.y, bounds.c.z, r_eff], dim=-1)
 
 
-def refine_pairs(bounds: AABB, cand, max_pairs: int, ordered: bool = True):
+def refine_pairs(bounds: AABB, cand, max_pairs: int, self_rows=None,
+                 ordered: bool = True, packed=None):
     """Cull candidates by swept-AABB overlap; keep the closest
-    ``max_pairs`` per body.  ``cand`` is the (N, K) candidate matrix of
-    body indices; ``ordered`` keeps only partners of smaller index (the
-    reference's dedupe), ``ordered=False`` both directions.  Returns
-    (partner (N, max_pairs) int32, valid)."""
-    self_rows = torch.arange(cand.shape[0], dtype=torch.int32,
-                             device=cand.device)
-    packed = pack_bounds(bounds)
-    gb = packed[torch.clamp(cand, min=0).long()]     # (N, K, 4): ONE gather
-    sb = packed[:, None, :]                          # (N, 1, 4)
+    ``max_pairs`` per body.  ``cand`` is the (rows, K) candidate matrix of
+    global body indices and ``self_rows`` the global index of each
+    candidate row (by default 0..rows-1); ``ordered`` keeps only partners
+    of smaller index (the reference's dedupe), ``ordered=False`` both
+    directions.  ``packed`` is :func:`pack_bounds` of ``bounds`` when the
+    caller has it.  Returns (partner (rows, max_pairs) int32, valid)."""
+    if self_rows is None:
+        self_rows = torch.arange(cand.shape[0], dtype=torch.int32,
+                                 device=cand.device)
+    if packed is None:
+        packed = pack_bounds(bounds)
+    gb = packed[torch.clamp(cand, min=0).long()]     # (rows, K, 4): ONE gather
+    sb = packed[self_rows.long()][:, None, :]        # (rows, 1, 4)
     if ordered:
         ok = (cand >= 0) & (cand < self_rows[:, None])
     else:
@@ -174,23 +180,24 @@ def all_pairs_candidates(n: int, device):
 
 
 class FatGrid(NamedTuple):
-    """Cell table whose bucket rows carry ``[x*cap | y*cap | z*cap |
-    idx*cap]`` (idx stored as ``index + 0.5``, -1 for empty) and the
-    occupants' max bound radius ``r_max``."""
-    table: torch.Tensor     # (ncell, cap * 4) float32
+    """Cell table whose bucket rows carry the occupants' bounds inline, so
+    the candidate cull needs no per-candidate gather.  ``width == 8``: per
+    slot ``[cx cy cz r_eff idx 0 0 0]``; ``width == 4``: component-blocked
+    ``[x*cap | y*cap | z*cap | idx*cap]`` with the occupants' max bound
+    radius in ``r_max`` (half the bytes; the cull is then conservative for
+    mixed radii).  ``idx`` is stored as ``index + 0.5``, -1 for empty."""
+    table: torch.Tensor     # (ncell, cap * width) float32
     overflow: torch.Tensor  # () int32
-    width: int = 4
+    width: int = 8
     r_max: torch.Tensor = None
 
 
-def build_fat_grid(bounds: AABB, cfg: GridConfig, width: int = 4,
+def build_fat_grid(bounds: AABB, cfg: GridConfig, width: int = 8,
                    valid=None) -> FatGrid:
     """Bin bodies with their conservative bound radius into the grid.
     ``valid`` (N,) bool keeps dead rows out of the table entirely."""
-    if width != 4:
-        raise NotImplementedError(
-            "build_fat_grid(width=8) serves the fat/fat8 broadphase modes "
-            "(ROADMAP slice 14)")
+    if width not in (4, 8):
+        raise ValueError(f"fat grid width must be 4 or 8, got {width}")
     centers = bounds.c
     ncell = grid_ncells(cfg)
     cap = cfg.bucket_cap
@@ -201,52 +208,106 @@ def build_fat_grid(bounds: AABB, cfg: GridConfig, width: int = 4,
     in_table = sorted_h < ncell
     ok = (rank < cap) & in_table
     n_over = torch.sum((rank >= cap) & in_table).to(torch.int32)
-    rows4 = torch.stack([centers.x[order], centers.y[order],
-                         centers.z[order],
-                         order.to(torch.float32) + 0.5], dim=-1)
+    idx = order.to(torch.float32) + 0.5
+    if width == 4:
+        rows = torch.stack([centers.x[order], centers.y[order],
+                            centers.z[order], idx], dim=-1)
+        empty = [0.0, 0.0, 0.0, -1.0]
+    else:
+        z = torch.zeros_like(idx)
+        rows = torch.stack([centers.x[order], centers.y[order],
+                            centers.z[order], r_eff[order], idx, z, z, z],
+                           dim=-1)
+        empty = [0.0, 0.0, 0.0, 0.0, -1.0, 0.0, 0.0, 0.0]
     # one extra sentinel slot takes the rows JAX drops (mode='drop')
-    table4 = torch.tensor([0.0, 0.0, 0.0, -1.0], dtype=torch.float32,
-                          device=sorted_h.device).repeat(ncell * cap + 1, 1)
+    table = torch.tensor(empty, dtype=torch.float32,
+                         device=sorted_h.device).repeat(ncell * cap + 1, 1)
     slot = sorted_h * cap + torch.clamp(rank, max=cap - 1)
-    table4[torch.where(ok, slot, ncell * cap).long()] = rows4
-    table = (table4[:ncell * cap].reshape(ncell, cap, 4)
-             .transpose(1, 2).reshape(ncell, 4 * cap))
-    return FatGrid(table=table, overflow=n_over, width=4,
-                   r_max=torch.max(r_eff))
+    table[torch.where(ok, slot, ncell * cap).long()] = rows
+    table = table[:ncell * cap].reshape(ncell, cap, width)
+    if width == 4:
+        # component-blocked: each component's cap slots lane-contiguous
+        table = table.transpose(1, 2)
+    return FatGrid(table=table.reshape(ncell, width * cap), overflow=n_over,
+                   width=width, r_max=torch.max(r_eff))
+
+
+def _top_pairs(cand, score, max_pairs: int):
+    """The ``max_pairs`` best candidates by float score (the path past 2^17
+    bodies, where the fused int key's 17-bit index no longer fits).
+    ``lax.top_k`` keeps the lower column among equal scores: a stable
+    descending sort."""
+    if cand.shape[1] <= max_pairs:
+        partner = torch.nn.functional.pad(
+            cand, (0, max_pairs - cand.shape[1]), value=-1)
+        return partner, partner >= 0
+    top, pick = torch.sort(score, dim=1, descending=True, stable=True)
+    top, pick = top[:, :max_pairs], pick[:, :max_pairs]
+    valid = torch.isfinite(top)
+    return torch.where(valid, torch.gather(cand, 1, pick), -1), valid
 
 
 def fat_grid_pairs(bounds: AABB, grid: FatGrid, cfg: GridConfig,
-                   max_pairs: int, ordered: bool = True, window: str = "27"):
-    """Candidate partners per body straight from the fat grid: 27
-    bucket-row gathers -> AABB cull -> top-``max_pairs`` by the fused
-    (quantized distance | index) int32 key.  Returns (partner
-    (N, max_pairs) int32, valid)."""
-    if window != "27" or grid.width != 4:
-        raise NotImplementedError(
-            "only the 27-cell window over width-4 rows (fat27x4) is on the "
-            "flagship path; sel8 and width-8 are ROADMAP slice 14")
-    centers = bounds.c
-    n_bodies = centers.x.shape[0]
-    if n_bodies > (1 << 17):
-        raise NotImplementedError(
-            "the float-score top-k past 2^17 bodies is ROADMAP slice 14")
-    self_rows = torch.arange(n_bodies, dtype=torch.int32,
-                             device=centers.x.device)
+                   max_pairs: int, self_rows=None, ordered: bool = True,
+                   query_centers: Vec3 = None, window: str = "27"):
+    """Candidate partners per body straight from the fat grid: bucket-row
+    gathers -> AABB cull -> the ``max_pairs`` closest.  Returns (partner
+    (rows, max_pairs) int32, valid).
+
+    ``query_centers`` (default ``bounds.c``) pick the cells a row queries
+    and ``self_rows`` (default 0..rows-1) its global body index, so a
+    shard can query its own rows against a global table.  ``window``:
+
+    * ``"27"``: the 3x3x3 block, pair reach up to ``cell_size``;
+    * ``"sel8"``: the 2x2x2 octant nearest the query point (per axis the
+      own cell and the neighbour on the side the point lies in), pair
+      reach guaranteed only up to ``cell_size / 2``.
+
+    Width-8 rows cull with each occupant's own radius, width-4 rows with
+    the table's ``r_max``.  Up to 2^17 bodies the score is a fused int32
+    key (14-bit quantized distance | 17-bit index), past it a float score
+    and a separate index."""
+    centers = query_centers if query_centers is not None else bounds.c
+    dev = centers.x.device
+    if self_rows is None:
+        self_rows = torch.arange(centers.x.shape[0], dtype=torch.int32,
+                                 device=dev)
     cx, cy, cz = _cell_coords(centers, cfg)
-    sx, sy, sz = centers.x, centers.y, centers.z
-    sr = torch.maximum(bounds.r.x, torch.maximum(bounds.r.y, bounds.r.z))
-    d2_max = (3.0 * cfg.cell_size) ** 2
-    inv_scale = 16383.0 / d2_max
+    rows_l = self_rows.long()
+    sx, sy, sz = (c[rows_l] for c in bounds.c)
+    sr = torch.maximum(bounds.r.x, torch.maximum(bounds.r.y,
+                                                 bounds.r.z))[rows_l]
+    if window == "sel8":
+        # which half of its cell is the point in, per axis?
+        half = lambda p, c: torch.where(
+            p - c.to(p.dtype) * cfg.cell_size > 0.5 * cfg.cell_size, 1, -1
+        ).to(torch.int32)
+        so = (half(centers.x, cx), half(centers.y, cy), half(centers.z, cz))
+        offsets = [(ax, ay, az) for ax in (0, 1) for ay in (0, 1)
+                   for az in (0, 1)]
+        cells = lambda o: (cx + so[0] * o[0], cy + so[1] * o[1],
+                           cz + so[2] * o[2])
+    else:
+        offsets = _OFFSETS
+        cells = lambda o: (cx + o[0], cy + o[1], cz + o[2])
+    width = grid.width
     cap = cfg.bucket_cap
-    rr = grid.r_max + sr[:, None]
-    keys = []
-    for (dx, dy, dz) in _OFFSETS:
-        h = _bucket_index(cx + dx, cy + dy, cz + dz, cfg)
-        bucket = grid.table[h.long()]            # (N, cap*4) ONE gather
-        bx = bucket[:, 0:cap]
-        by = bucket[:, cap:2 * cap]
-        bz = bucket[:, 2 * cap:3 * cap]
-        raw_idx = bucket[:, 3 * cap:4 * cap]
+    use_ikey = bounds.c.x.shape[0] <= (1 << 17)
+    inv_scale = 16383.0 / (3.0 * cfg.cell_size) ** 2
+    keys, cands, scores = [], [], []
+    for o in offsets:
+        bucket = grid.table[_bucket_index(*cells(o), cfg).long()]  # ONE gather
+        if width == 4:
+            bx = bucket[:, 0:cap]
+            by = bucket[:, cap:2 * cap]
+            bz = bucket[:, 2 * cap:3 * cap]
+            raw_idx = bucket[:, 3 * cap:4 * cap]
+            rr = grid.r_max + sr[:, None]
+        else:
+            b8 = bucket.reshape(-1, cap, 8)
+            bx, by, bz = b8[..., 0], b8[..., 1], b8[..., 2]
+            raw_idx = b8[..., 4]
+            rr = b8[..., 3] + sr[:, None]
         idx = raw_idx.to(torch.int32)            # truncates index + 0.5
         ddx = bx - sx[:, None]
         ddy = by - sy[:, None]
@@ -258,9 +319,17 @@ def fat_grid_pairs(bounds: AABB, grid: FatGrid, cfg: GridConfig,
         else:
             ok = ok & (idx != self_rows[:, None])
         d2 = ddx * ddx + ddy * ddy + ddz * ddz
-        q = torch.clamp((d2 * inv_scale).to(torch.int32), max=16383)
-        keys.append(torch.where(ok, ((16383 - q) << 17) | idx, -1))
-    keym = torch.cat(keys, dim=1)                # (N, 27*cap) int32
+        if use_ikey:
+            q = torch.clamp((d2 * inv_scale).to(torch.int32), max=16383)
+            keys.append(torch.where(ok, ((16383 - q) << 17) | idx, -1))
+        else:
+            cands.append(torch.where(ok, idx, -1))
+            scores.append(torch.where(ok, -d2, -float("inf")))
+    # columns offset-major, slot-minor, as the JAX package lays them out
+    if not use_ikey:
+        return _top_pairs(torch.cat(cands, dim=1), torch.cat(scores, dim=1),
+                          max_pairs)
+    keym = torch.cat(keys, dim=1)                # (rows, W) int32
     if keym.shape[1] <= max_pairs:
         top = torch.nn.functional.pad(
             keym, (0, max_pairs - keym.shape[1]), value=-1)

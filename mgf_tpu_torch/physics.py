@@ -224,6 +224,17 @@ class SceneBuilder:
                           mass, restitution, friction, gravity)
         return sum(len(b['r']) for b in self._batches) - 1
 
+    def add_static_spheres(self, centers, radii, friction):
+        """Immovable sphere colliders (RigidBodyRef::Static, physics.rs:
+        159-177: inv_mass 0, zero moment, restitution 0)."""
+        self.add_spheres(centers, radii, mass=np.inf, restitution=0.0,
+                         friction=friction, gravity=(0.0, 0.0, 0.0))
+
+    def add_static_capsules(self, a, d, radii, friction):
+        """Immovable capsule colliders (RigidBodyRef::Static)."""
+        self.add_capsules(a, d, radii, mass=np.inf, restitution=0.0,
+                          friction=friction, gravity=(0.0, 0.0, 0.0))
+
     def build(self, device=torch.device("cuda")) -> RigidBodyState:
         g = lambda k: np.concatenate([b[k] for b in self._batches], axis=0)
         kind = g('kind')

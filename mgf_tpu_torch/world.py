@@ -9,7 +9,7 @@ Counterpart of ``mgf_tpu.world`` (reference: ``mgf_demo/world.rs:227-294``,
     -> manifolds -> row constraints -> [warm match] -> row solver
 
 * **fused_iso** (the flagship ``stress_scene``): the fat grid, cached
-  (``bp_every > 1``) or rebuilt every step; one 18-wide partner gather
+  or rebuilt every step; one 18-wide partner gather
   that feeds the contact test and a gather-free constraint build; the
   "near" terrain cull; warm starting; kernel K1 for the solver's inner
   sweeps.
@@ -46,6 +46,29 @@ Counterpart of ``mgf_tpu.world`` (reference: ``mgf_demo/world.rs:227-294``,
   ``World.terrain_grid`` (built by :func:`make_world` with
   ``terrain_grid_cfg``) culls the faces of a large mesh to
   ``terrain_cand`` per body, the mesh BVH::query equivalent (mesh.rs:121).
+* **the broadphase modes**: ``"packed"`` (and any name that is not a fat
+  mode, as in the JAX package) or the fat grid as ``"fat"`` (width-8
+  rows, 27 cells), ``"fat8"`` (width 8, the 2x2x2 octant ``"sel8"``),
+  ``"fat8x4"`` (width 4, sel8) and ``"fat27x4"`` (width 4, 27 cells).
+  The octant modes guarantee pair reach up to half a cell only, so the
+  reach excess and the cache's slack budget use that.
+* **the broadphase caches** (fat modes, ``init_bp_cache`` state):
+  ``bp_margin > 0`` alone builds the candidate list with that much extra
+  fat and rebuilds when any body drifts more than ``bp_margin / 2`` from
+  where it was built (fat-proxy refit, world.rs:233-238); ``bp_every >
+  1`` rebuilds on that cadence or the moment a body outruns its build
+  slack, and with ``bp_margin`` also on the drift test.
+* **stage probes** (``profile_stage``): the step stops after the named
+  stage and returns the INPUT world with ``{"probe": scalar}``, the JAX
+  package's probe expressions; the stages after ``"terrain"`` exist on
+  the rows solver only.
+
+The module also holds the host-side world surgery of the JAX package:
+:func:`extend_world` / :func:`remove_bodies` (the body count changes) and
+the capacity world (:func:`with_capacity`, :func:`spawn_bodies`,
+:func:`kill_bodies`: dead rows with ``shape_r <= 0``, shapes unchanged).
+Every one of them returns new tensors and leaves the caller's world as it
+was, as the JAX package's ``.at[].set`` does.
 
 All branches keep every pair and terrain batch 2-D and slot-major,
 (width, N), so the self side of a batch is a broadcast of the body
@@ -57,9 +80,8 @@ k * N + i is slot s of body i's k-th pair): the order of the points is
 the Gauss-Seidel order.
 
 :class:`WorldConfig` keeps every field name and default of the JAX
-package's, so a config moves between the two unchanged.  Configurations
-the port does not run yet raise ``NotImplementedError`` naming the ROADMAP
-slice that brings them.
+package's, so a config moves between the two unchanged, and every value
+the JAX package accepts runs here.
 
 The JAX step is one jitted graph with ``lax.cond`` switches.  Here the two
 conds on ``need`` (rebuild or reuse the broadphase cache; keyed or
@@ -71,6 +93,7 @@ per step.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -105,6 +128,12 @@ from mgf_tpu_torch.solver import (
 
 CUDA = torch.device("cuda")
 
+# the fat-grid broadphase modes (every other name runs the packed grid)
+FAT_MODES = ("fat", "fat8", "fat8x4", "fat27x4")
+# set by utils.debug.enable_debug_mode: every step's output state and
+# metrics are checked for non-finite values (jax_debug_nans' role)
+DEBUG_NANS = False
+
 
 class WorldConfig(NamedTuple):
     """Static configuration of the step pipeline: the JAX package's
@@ -121,13 +150,16 @@ class WorldConfig(NamedTuple):
     friction_mode: str = "textbook"  # "textbook" | "mgf"
     two_phase: bool = True           # rows solver: friction/normal phases
     solver_inner: int = 1            # rows solver: inner sweeps per gather
-    broadphase: str = "packed"       # "packed" | fat modes
+    broadphase: str = "packed"       # "packed" | "fat" | "fat8" |
+                                     # "fat8x4" | "fat27x4"
     terrain_rows: int = 0            # keep only the top-k terrain rows
     terrain_bp: str = "dense"        # "dense" | "grid" | "near"
     terrain_cand: int = 8            # candidate faces per body (near/grid)
     terrain_grid_cfg: GridConfig = None  # face-table geometry ("grid")
-    profile_stage: str = ""          # stop after a stage (JAX profiling)
-    bp_margin: float = 0.0           # > 0: fat-proxy refit cache
+    profile_stage: str = ""          # "" or a stage name: stop after it
+                                     # and return a probe scalar
+    bp_margin: float = 0.0           # > 0: fat-proxy refit cache (needs
+                                     # init_bp_cache state)
     bp_every: int = 1                # > 1: rebuild the candidate list on
                                      # this cadence, or the moment a body
                                      # outruns its build slack (needs
@@ -186,7 +218,7 @@ class World(NamedTuple):
                                        # [fid*cap | cx*cap | cy*cap |
                                        # cz*cap] (face id + centroid)
     warm: SolverWarm = None            # cfg.warm_start state (init_warm)
-    bp: BpCache = None                 # cfg.bp_every state (init_bp_cache)
+    bp: BpCache = None                 # broadphase cache (init_bp_cache)
 
 
 def solver_row_count(cfg: WorldConfig, n_tris: int) -> int:
@@ -556,25 +588,12 @@ def _body_bounds(cfg: WorldConfig, sv) -> AABB:
                 r=where_vec(is_sph, sb.r, cb.r))
 
 
-def _check_slice(cfg: WorldConfig, world: World, n_tris: int):
-    """Raise for any configuration the port does not run yet."""
+def _check_config(cfg: WorldConfig, world: World, n_tris: int):
+    """The JAX package's own guards on a configuration."""
     if cfg.shape_mode not in ("spheres", "capsules", "mixed"):
         raise ValueError(f"unknown shape_mode {cfg.shape_mode!r}")
     if cfg.solver not in ("rows", "parallel", "sequential"):
         raise ValueError(f"unknown solver {cfg.solver!r}")
-    off = None
-    if cfg.profile_stage:
-        off = ("profile_stage (becomes profiler ranges)", 14)
-    elif cfg.use_grid and cfg.broadphase not in ("packed", "fat27x4"):
-        off = (f"broadphase={cfg.broadphase!r}", 14)
-    elif cfg.bp_margin > 0.0:
-        off = ("bp_margin (the fat-proxy refit cache)", 14)
-    if off is not None:
-        raise NotImplementedError(
-            f"mgf_tpu_torch runs the fused_iso branch, the generic row "
-            f"branch and the flat solvers for spheres, capsules and mixed "
-            f"piles; {off[0]} arrives with ROADMAP slice {off[1]}")
-    # the JAX package's own guards
     if n_tris > 0 and cfg.terrain_bp == "grid" and (
             world.terrain_grid is None or cfg.terrain_grid_cfg is None):
         raise ValueError("terrain_bp='grid' needs make_world("
@@ -589,6 +608,12 @@ def _check_slice(cfg: WorldConfig, world: World, n_tris: int):
     if (cfg.warm_start and cfg.warm_match == "hybrid"
             and not cfg.stable_pairs):
         raise ValueError("warm_match='hybrid' requires stable_pairs")
+
+
+def _isum(x):
+    """A sum in int32, as ``jnp.sum`` of a bool or int32 array is (torch
+    would widen it to int64)."""
+    return torch.sum(x, dtype=torch.int32)
 
 
 def _deepest(c: Contact):
@@ -709,14 +734,19 @@ def _match_warm(warm: SolverWarm, partner_rows, key2_rows, n: int,
 
 
 def _fat_pairs(bounds, alive, cfg: WorldConfig):
-    """One fat-grid candidate build (fat27x4): partner (N, K), ok,
-    overflow; canonically sorted with ``stable_pairs``.  The flat solvers
-    take each pair once (the partner of smaller index), the rows solver in
-    both directions."""
-    grid = broadphase.build_fat_grid(bounds, cfg.grid, width=4, valid=alive)
+    """One fat-grid candidate build in the mode ``cfg.broadphase`` names
+    (width 4 for "fat8x4"/"fat27x4", else 8; the sel8 octant for
+    "fat8"/"fat8x4", else 27 cells): partner (N, K), ok, overflow;
+    canonically sorted with ``stable_pairs``.  The flat solvers take each
+    pair once (the partner of smaller index), the rows solver in both
+    directions."""
+    grid = broadphase.build_fat_grid(
+        bounds, cfg.grid,
+        width=4 if cfg.broadphase in ("fat8x4", "fat27x4") else 8,
+        valid=alive)
     partner, pair_ok = broadphase.fat_grid_pairs(
         bounds, grid, cfg.grid, cfg.max_pairs, ordered=cfg.solver != "rows",
-        window="27")
+        window="sel8" if cfg.broadphase in ("fat8", "fat8x4") else "27")
     if cfg.stable_pairs:
         partner, pair_ok = _stable_sort_pairs(partner, pair_ok)
     return partner, pair_ok, grid.overflow
@@ -812,9 +842,21 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     """One physics frame (World::step, world.rs:227-294).  Returns
     (new_world, metrics dict of device tensors).  ``collect_contacts``
     adds the raw pair and terrain contact streams with their index vectors
-    to the metrics, in the JAX package's flat layout."""
+    to the metrics, in the JAX package's flat layout.  With
+    ``cfg.profile_stage`` set, (world, {"probe": scalar}) after that
+    stage.  In debug mode (``utils.debug.enable_debug_mode``) a
+    non-finite value in the output state or metrics raises
+    ``FloatingPointError``."""
+    out = _step(world, cfg, collect_contacts)
+    if DEBUG_NANS:
+        from mgf_tpu_torch.utils.debug import check_finite
+        check_finite(*out)
+    return out
+
+
+def _step(world: World, cfg: WorldConfig, collect_contacts: bool):
     n_tris = world.terrain.a.x.shape[0]
-    _check_slice(cfg, world, n_tris)
+    _check_config(cfg, world, n_tris)
     rows_form = cfg.solver == "rows"
     fused = cfg.fused_iso
     iso_mode = cfg.shape_mode == "spheres"
@@ -839,7 +881,10 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     bounds = broadphase.swept_fat_bounds(body_bounds, state.delta, cfg.fatten)
     r_eff = torch.where(alive, torch.maximum(
         bounds.r.x, torch.maximum(bounds.r.y, bounds.r.z)), 0.0)
-    guarantee = cfg.grid.cell_size
+    # the window covers pair reach up to a cell ("27", packed) or half a
+    # cell (the sel8 octant)
+    guarantee = cfg.grid.cell_size * (0.5 if cfg.broadphase in
+                                      ("fat8", "fat8x4") else 1.0)
     if n >= 2 and not light:
         m1 = torch.max(r_eff)
         m2 = torch.clamp(torch.max(torch.where(r_eff < m1, r_eff,
@@ -861,12 +906,18 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
             span(bounds.c.z) / (gdims[2] * cfg.grid.cell_size)) - 1.0,
             min=0.0)
 
+    if cfg.profile_stage == "integrate":
+        return world, {"probe": torch.sum(bounds.c.x)}
+
     bp = world.bp
     new_bp = bp
     rebuild = True
     need = torch.tensor(True, device=dev)
     bp_drift_excess = f32(0.0)
-    if not cfg.use_grid or cfg.broadphase == "packed":
+    fat = cfg.use_grid and cfg.broadphase in FAT_MODES
+    if not fat:
+        # the packed grid (any broadphase name that is not a fat mode, as
+        # the JAX package's `elif cfg.use_grid`) or all pairs
         if cfg.use_grid:
             table = broadphase.build_grid(bounds.c, cfg.grid, valid=alive)
             cand = broadphase.neighbor_candidates(bounds.c, table, cfg.grid)
@@ -877,28 +928,43 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
         partner, pair_ok = broadphase.refine_pairs(bounds, cand,
                                                    cfg.max_pairs,
                                                    ordered=not rows_form)
-        if cfg.stable_pairs and cfg.broadphase == "packed":
+        if cfg.stable_pairs and cfg.broadphase not in FAT_MODES:
             partner, pair_ok = _stable_sort_pairs(partner, pair_ok)
-    elif cfg.bp_every > 1 and bp is not None:
-        # staleness-gated cache around the fat grid
+    elif (cfg.bp_margin > 0.0 or cfg.bp_every > 1) and bp is not None:
         x_end = state.x + state.delta
         drift2 = magnitude2(x_end - bp.anchor)
-        dmag = torch.sqrt(magnitude2(state.delta))
-        desired = (cfg.bp_every - 1) * (2.0 * dmag + 0.02)
-        budget = torch.clamp(0.5 * guarantee - r_eff, min=0.0)
-        slack = torch.minimum(desired, budget)
-        r_grow = torch.clamp(r_eff - bp.r_build, min=0.0)
-        stale = torch.max(torch.where(
-            alive, torch.sqrt(drift2) + r_grow - bp.slack, 0.0)) > 0.0
-        need = ((bp.count % cfg.bp_every) == 0) | stale
+        margin_trip = (0.5 * cfg.bp_margin) ** 2
+        if cfg.bp_every > 1:
+            # cadence cache: slack per body covers the skipped steps'
+            # motion, clamped to the window budget; a body outrunning its
+            # slack (drift + growth of its reach) forces a rebuild now
+            dmag = torch.sqrt(magnitude2(state.delta))
+            desired = (cfg.bp_every - 1) * (2.0 * dmag + 0.02)
+            budget = torch.clamp(0.5 * guarantee - r_eff, min=0.0)
+            slack = torch.minimum(desired, budget)
+            r_grow = torch.clamp(r_eff - bp.r_build, min=0.0)
+            stale = torch.max(torch.where(
+                alive, torch.sqrt(drift2) + r_grow - bp.slack, 0.0)) > 0.0
+            need = ((bp.count % cfg.bp_every) == 0) | stale
+            if cfg.bp_margin > 0.0:
+                # the drift safety net composes (max over every row, the
+                # dead ones too, as in the JAX package)
+                need = need | (torch.max(drift2) > margin_trip)
+        else:
+            # fat-proxy refit: rebuild once some body drifted more than
+            # margin / 2 from where the list was built
+            slack = torch.full((n,), 0.5 * cfg.bp_margin,
+                               dtype=torch.float32, device=dev)
+            need = torch.max(drift2) > margin_trip
         # the one host read of the step: rebuild or reuse (JAX: lax.cond)
         rebuild = bool(need)
         if rebuild:
             fat_bounds = broadphase.swept_fat_bounds(
                 body_bounds, state.delta, cfg.fatten + cfg.bp_margin)
-            fat_bounds = fat_bounds._replace(r=Vec3(
-                fat_bounds.r.x + slack, fat_bounds.r.y + slack,
-                fat_bounds.r.z + slack))
+            if cfg.bp_every > 1:
+                fat_bounds = fat_bounds._replace(r=Vec3(
+                    fat_bounds.r.x + slack, fat_bounds.r.y + slack,
+                    fat_bounds.r.z + slack))
             partner, pair_ok, overflow = _fat_pairs(fat_bounds, alive, cfg)
             new_bp = BpCache(partner=partner, ok=pair_ok, anchor=x_end,
                              overflow=overflow, count=bp.count + 1,
@@ -911,6 +977,8 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
         overflow = new_bp.overflow
     else:
         partner, pair_ok, overflow = _fat_pairs(bounds, alive, cfg)
+    if cfg.profile_stage == "pairs":
+        return world, {"probe": _isum(partner) + _isum(pair_ok)}
 
     # ---- body-body narrowphase over slot-major (K, N) partner rows ----
     K = partner.shape[1]
@@ -958,6 +1026,9 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
                       contact=pc)
     prox = manifold_prox_sq(cfg)
     pair_manifold = prune(lc, max_contacts=n_slots, prox_sq=prox)
+    if cfg.profile_stage == "narrow":
+        return world, {"probe": _isum(pair_manifold.valid)
+                       + torch.sum(pair_manifold.local_a.x)}
     max_pen = f32(0.0) if light else _deepest(pc)
 
     # ---- terrain narrowphase: dense, the "near" cull or the face grid ----
@@ -1006,6 +1077,11 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
         t_manifold = prune(t_lc, max_contacts=n_slots, prox_sq=prox)
         if not light:
             max_pen = torch.maximum(max_pen, _deepest(tc))
+    if cfg.profile_stage == "terrain":
+        n_valid = _isum(pair_manifold.valid)
+        if n_tris > 0:
+            n_valid = n_valid + _isum(t_manifold.valid)
+        return world, {"probe": n_valid + max_pen}
 
     # what the step's tail reports, whichever solver runs
     tail = dict(alive=alive, overflow=overflow, reach_excess=reach_excess,
@@ -1079,6 +1155,8 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
         # the latest-TOI rows are dropped (counted in the metrics)
         man_rows, partner_rows, key2_rows, tail["rows_dropped"] = \
             _compact_rows(man_rows, partner_rows, key2_rows, cfg.solver_rows)
+    if cfg.profile_stage == "rows":
+        return world, {"probe": _isum(man_rows.valid) + _isum(partner_rows)}
     rc_valid = man_rows.valid
     new_warm = world.warm
 
@@ -1141,6 +1219,13 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
                                        bias_max=cfg.bias_max)
             solver_inertia = bodies_ext.inv_moment
 
+    if cfg.profile_stage == "constraints":
+        if rc is None:
+            return world, {"probe": torch.sum(rc_a.bias)
+                           + torch.sum(rc_b.normal_mass)}
+        return world, {"probe": torch.sum(rc.bias)
+                       + torch.sum(rc.normal_mass)}
+
     # ---- warm matching (JAX hybrid: lax.cond on the same `need`) ----
     warm = None
     matched = None
@@ -1154,6 +1239,11 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
             g = cfg.warm_gamma
             wn, wt1, wt2 = wn * g, wt1 * g, wt2 * g
         warm = (wn, wt1, wt2)
+    if cfg.profile_stage == "warm":
+        probe = _isum(rc_valid)
+        if warm is not None:
+            probe = torch.sum(warm[0]) + torch.sum(warm[1]) + probe
+        return world, {"probe": probe}
 
     # ---- solve ----
     use_pk = (cfg.pallas_solver and fused and not cfg.two_phase
@@ -1220,6 +1310,8 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
                               acc_t2=acc[2])
     else:
         v, omega, _ = run_solve(*schedule)
+    if cfg.profile_stage == "solve":
+        return world, {"probe": torch.sum(v.x) + torch.sum(omega.x)}
     return _finish(world, cfg, state, v, omega, rc_valid, tail, new_warm,
                    new_bp, streams)
 
@@ -1276,3 +1368,154 @@ def _finish(world: World, cfg: WorldConfig, state: RigidBodyState, v, omega,
                 tri=streams["t_tris"].reshape(-1),
                 contact=flat(streams["tc"]))
     return world._replace(bodies=state, warm=new_warm, bp=new_bp), metrics
+
+
+def make_step_fn(cfg: WorldConfig):
+    """A step closure over a config (the JAX package jits it; here it is
+    the eager step, so a new body count needs no recompile)."""
+    return functools.partial(step, cfg=cfg)
+
+
+# ---------------------------------------------------------------------------
+# host-side world surgery (RigidBodyVec::add_body, physics.rs:200-218;
+# Pool::push/remove, pool.rs:81-113).  Every function returns new tensors:
+# the caller's world stays as it was.
+# ---------------------------------------------------------------------------
+
+def extend_world(world: World, new_bodies) -> World:
+    """Append bodies to a world between steps (the body count changes; the
+    warm and broadphase caches are left as they are).  Prefer
+    :func:`with_capacity` + :func:`spawn_bodies`, which keep every shape."""
+    dev = world.bodies.x.x.device
+    cat = lambda a, b: torch.cat([a, torch.as_tensor(b).to(dev)], dim=0)
+    return world._replace(bodies=tree_map(cat, world.bodies, new_bodies))
+
+
+def remove_bodies(world: World, indices) -> World:
+    """Remove bodies by index with compaction: surviving indices shift.
+    Prefer :func:`kill_bodies` for stable indices (Pool::remove,
+    pool.rs:100-113)."""
+    keep = np.ones(world.bodies.n_bodies, bool)
+    keep[np.asarray(indices, np.int64)] = False
+    kidx = torch.as_tensor(np.nonzero(keep)[0],
+                           device=world.bodies.x.x.device)
+    take = lambda a: torch.index_select(a, 0, kidx)
+    return world._replace(bodies=tree_map(take, world.bodies))
+
+
+# ---------------------------------------------------------------------------
+# capacity-padded worlds: O(1) add/remove that never change a shape (Pool
+# semantics, pool.rs:37-113: stable indices, free-list reuse).  A dead row
+# has shape_r <= 0: the grid builders skip it, the narrowphase cannot hit
+# it, and it is parked far from any scene so the terrain culls drop it too.
+# ---------------------------------------------------------------------------
+
+def _dead_row_fields(rows):
+    """The x position of dead body slots ``rows``: 1e5 + 100 * row, so
+    no two dead rows share a place."""
+    rows = np.asarray(rows, np.int64)
+    return (1.0e5 + 100.0 * rows).astype(np.float32)
+
+
+def _kill_rows(bodies: RigidBodyState, idx) -> RigidBodyState:
+    """Rows ``idx`` marked dead: parked, at rest, massless, shape_r = -1."""
+    idx_np = np.asarray(idx, np.int64)
+    dev = bodies.x.x.device
+    i = torch.as_tensor(idx_np, device=dev)
+
+    def put(t, value):
+        out = t.clone()
+        out[i] = torch.as_tensor(value, dtype=t.dtype, device=dev)
+        return out
+
+    zero = lambda t: put(t, 0)
+    return bodies._replace(
+        x=Vec3(put(bodies.x.x, _dead_row_fields(idx_np)),
+               put(bodies.x.y, 1.0e5), put(bodies.x.z, 1.0e5)),
+        q=Quat(put(bodies.q.w, 1.0), zero(bodies.q.x), zero(bodies.q.y),
+               zero(bodies.q.z)),
+        v=tree_map(zero, bodies.v), omega=tree_map(zero, bodies.omega),
+        force=tree_map(zero, bodies.force),
+        torque=tree_map(zero, bodies.torque),
+        delta=tree_map(zero, bodies.delta),
+        restitution=zero(bodies.restitution),
+        friction=zero(bodies.friction), inv_mass=zero(bodies.inv_mass),
+        inv_moment_body=tree_map(zero, bodies.inv_moment_body),
+        inv_moment=tree_map(zero, bodies.inv_moment),
+        shape_type=zero(bodies.shape_type),
+        shape_r=put(bodies.shape_r, -1.0),
+        shape_half_h=zero(bodies.shape_half_h))
+
+
+def _reset_warm(world: World) -> World:
+    """Zero the warm-start state (slot surgery invalidates the row keys:
+    a reused slot would warm a new body with a dead one's impulses)."""
+    if world.warm is None:
+        return world
+    w = world.warm
+    return world._replace(warm=SolverWarm(
+        partner=torch.full_like(w.partner, -9),
+        key2=torch.full_like(w.key2, -9),
+        acc_n=torch.zeros_like(w.acc_n), acc_t1=torch.zeros_like(w.acc_t1),
+        acc_t2=torch.zeros_like(w.acc_t2)))
+
+
+def with_capacity(world: World, capacity: int) -> World:
+    """Pad the body store with dead rows to a fixed ``capacity``, so that
+    :func:`spawn_bodies` / :func:`kill_bodies` are mask edits that never
+    change a shape.  Call it before ``init_warm`` (the caches are shaped
+    by the body count)."""
+    n = world.bodies.n_bodies
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} < current bodies {n}")
+    pad = capacity - n
+    if pad == 0:
+        return world
+    bodies = tree_map(lambda g: torch.cat(
+        [g, torch.zeros((pad,) + g.shape[1:], dtype=g.dtype,
+                        device=g.device)], dim=0), world.bodies)
+    bodies = _kill_rows(bodies, np.arange(n, capacity))
+    if world.warm is not None:
+        raise ValueError("call with_capacity BEFORE init_warm")
+    return world._replace(bodies=bodies)
+
+
+def free_slots(world: World):
+    """Host-side indices (numpy) of the dead, spawnable rows."""
+    return np.nonzero(world.bodies.shape_r.cpu().numpy() <= 0.0)[0]
+
+
+def spawn_bodies(world: World, new_bodies: RigidBodyState):
+    """Insert bodies into the first free slots (Pool::push, pool.rs:81-96:
+    freed slots are reused; indices are stable).  Returns (world, the slot
+    indices as a numpy array).  Resets the warm-start state."""
+    free = free_slots(world)
+    n_new = new_bodies.n_bodies
+    if len(free) < n_new:
+        raise ValueError(
+            f"world has {len(free)} free slots, need {n_new} — "
+            "re-create with a larger with_capacity")
+    dev = world.bodies.x.x.device
+    idx = torch.as_tensor(free[:n_new], device=dev)
+
+    def put(dst, src):
+        out = dst.clone()
+        out[idx] = torch.as_tensor(src).to(device=dev, dtype=dst.dtype)
+        return out
+
+    merged = tree_map(put, world.bodies, new_bodies)
+    return _reset_warm(world._replace(bodies=merged)), np.asarray(
+        free[:n_new])
+
+
+def kill_bodies(world: World, indices) -> World:
+    """Remove bodies by marking their slots dead (Pool::remove,
+    pool.rs:100-113): surviving indices are stable and nothing changes
+    shape.  Resets the warm-start state."""
+    return _reset_warm(world._replace(
+        bodies=_kill_rows(world.bodies, indices)))
+
+
+def num_alive(world: World) -> int:
+    """The number of live bodies (Pool::len), read on the host."""
+    return int(torch.sum(world.bodies.shape_r > 0.0))

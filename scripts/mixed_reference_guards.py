@@ -8,7 +8,13 @@ reference's raw-lambda friction, the parallel one with the demo's default);
 with ``--terrain N`` the heightfield scene ``terrain_scene(N)``
 (chip_smoke.py [17]); with ``--gjk`` GJK/EPA (``contact_convex_convex_ex``
 and ``separation``, jitted) on bench.py's 8,192 OBB pairs against the f64
-SAT oracle (chip_smoke.py [19]'s ``GJK_REFERENCE``).
+SAT oracle (chip_smoke.py [19]'s ``GJK_REFERENCE``); with
+``--fat-variants`` the sphere pile ``stress_scene(--bodies)`` in the
+broadphase modes fat27x4 (the scene's own), fat, fat8 and fat8x4 on
+chip_smoke.py [21]'s grids, 64 steps from the initial block: the pair reach
+excess at each 16th step (where chip_smoke.py's light chunks report it)
+and its worst over every step, overflow, drift excess, contacts and max
+penetration at the last step.
 
 Steps ``mgf_tpu.scenes.stress_scene(--bodies, mixed=True)`` with the JAX
 package on the CPU for ``--steps`` steps from the initial block and prints
@@ -25,6 +31,8 @@ y = -1 or outside the walls.
     JAX_PLATFORMS=cpu python scripts/mixed_reference_guards.py \
         --terrain 2000 --steps 240
     JAX_PLATFORMS=cpu python scripts/mixed_reference_guards.py --gjk
+    JAX_PLATFORMS=cpu python scripts/mixed_reference_guards.py \
+        --fat-variants --bodies 8000 --steps 64
 
 Takes about 0.5 s per step at 8,000 bodies and 1.7 s at 30,000 on 8 CPU
 cores, after a 20-40 s compile; the capsules demo about 8 min at NUM = 5
@@ -60,9 +68,13 @@ def main():
                     help="step terrain_scene(N) instead")
     ap.add_argument("--gjk", action="store_true",
                     help="GJK/EPA on bench.py's 8,192 OBB pairs instead")
+    ap.add_argument("--fat-variants", action="store_true",
+                    help="the sphere pile in each fat broadphase mode")
     args = ap.parse_args()
     if args.gjk:
         return gjk_pairs()
+    if args.fat_variants:
+        return fat_variants(args.bodies, args.steps)
 
     import jax
     from mgf_tpu.scenes import capsules_scene, stress_scene
@@ -240,6 +252,41 @@ def gjk_pairs():
     print(f"mgf_tpu GJK/EPA on {N_GJK} OBB pairs on "
           f"{jax.devices()[0].platform}: {sat_oracle(out, depth_sat)}, "
           f"EPA-saturated lanes {int(out['sat'].sum())}")
+
+
+def fat_variants(n_bodies, steps):
+    """stress_scene(n_bodies) in each fat broadphase mode, the solver in
+    plain jnp (the same math as its Pallas kernel)."""
+    import jax
+    from mgf_tpu.broadphase import GridConfig
+    from mgf_tpu.scenes import stress_scene
+    from mgf_tpu.world import step
+    for mode in ("fat27x4", "fat", "fat8", "fat8x4"):
+        world, cfg = stress_scene(n_bodies)
+        cfg = cfg._replace(broadphase=mode, pallas_solver=False)
+        if mode in ("fat8", "fat8x4"):
+            # chip_smoke.py [21]: cell 2.4, cap 24, the scene's x/z rule
+            wall = float(np.abs(np.asarray(world.terrain.a.x)).max())
+            dim = 32
+            while dim * 2.4 < 2.0 * wall + 10.0:
+                dim *= 2
+            cfg = cfg._replace(grid=GridConfig(2.4, (dim, 16, dim), 24))
+        f = jax.jit(functools.partial(step, cfg=cfg))
+        reach, over, drift = [], [], []
+        for _ in range(steps):
+            world, m = f(world)
+            reach.append(float(m["broadphase_reach_excess"]))
+            over.append(int(m["broadphase_overflow"]))
+            drift.append(float(m["broadphase_cache_drift_excess"]))
+        ends = [round(reach[k - 1], 6) for k in range(16, steps + 1, 16)]
+        print(f"mgf_tpu stress_scene({n_bodies}) broadphase={mode} grid "
+              f"{tuple(cfg.grid)}, {steps} steps on "
+              f"{jax.devices()[0].platform}: reach excess at steps 16, 32, "
+              f"... {ends}, worst {max(reach):.6f} (step "
+              f"{int(np.argmax(reach)) + 1}); overflow worst step "
+              f"{max(over)}; drift excess worst {max(drift)}; contacts "
+              f"{int(m['num_contacts'])}; max penetration "
+              f"{float(m['max_penetration']):.4f}", flush=True)
 
 
 if __name__ == "__main__":

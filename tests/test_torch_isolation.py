@@ -1,4 +1,5 @@
-"""mgf_tpu_torch, chip_smoke.py and scripts/torch_profile_step.py import
+"""mgf_tpu_torch, chip_smoke.py, scripts/torch_profile_step.py and the
+torch demos (demos/balls_torch.py, demos/capsules_torch.py) import
 neither jax nor mgf_tpu (the machine with the card has no JAX), and
 importing them initialises no CUDA context.  The package is walked module
 by module, so a new module is covered without being named here."""
@@ -38,8 +39,12 @@ def test_port_imports_no_jax():
     names, bad, cuda_init = json.loads(out.stdout.strip().splitlines()[-1])
     assert bad == [], bad
     assert cuda_init is False
-    assert len(names) >= 22
-    assert {"mgf_tpu_torch.gjk", "mgf_tpu_torch.queries"} <= set(names)
+    assert len(names) >= 28
+    assert {"mgf_tpu_torch.gjk", "mgf_tpu_torch.queries",
+            "mgf_tpu_torch.entry", "mgf_tpu_torch.utils",
+            "mgf_tpu_torch.utils.checkpoint", "mgf_tpu_torch.utils.debug",
+            "mgf_tpu_torch.utils.metrics",
+            "mgf_tpu_torch.utils.slots"} <= set(names)
 
 
 _SMOKE_PROBE = """
@@ -73,3 +78,8 @@ def test_chip_smoke_imports_no_jax():
 
 def test_profile_script_imports_no_jax():
     _probe_script("torch_profile_step", "scripts")
+
+
+@pytest.mark.parametrize("demo", ["balls_torch", "capsules_torch"])
+def test_torch_demos_import_no_jax(demo):
+    _probe_script(demo, "demos")

@@ -363,13 +363,38 @@ def test_bp_every_trajectory_parity_settled(settled):
     assert 12 <= sum(rebuilt) <= 18, rebuilt
 
 
-def test_off_slice_configs_raise(settled):
+def _pair_stream(m):
+    pc = m["pair_contacts"]
+    return pc["i"], pc["j"], pc["contact"].valid
+
+
+def test_off_slice_configs_raise(jax_run, settled):
+    """The configurations the port once refused (the stage probes, the
+    octant broadphase, the refit cache) run on the settled pile, finite,
+    with mgf_tpu's pair stream (from a JAX step cut to one sweep: the
+    stream is fixed before the solver runs) and probe; the JAX package's
+    own guards still raise."""
+    states, jcfg, _ = jax_run
     world, cfg = settled
-    for bad in (cfg._replace(profile_stage="pairs"),
-                cfg._replace(broadphase="fat8x4"),
-                cfg._replace(bp_margin=0.5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP slice"):
-            step(world, bad)
+    cut = dict(pallas_solver=False, solver_iters=1, solver_inner=1,
+               adapt_schedule=None)
+    jp = jax.jit(functools.partial(j_step, cfg=jcfg._replace(
+        profile_stage="pairs", **cut)))(states[260])[1]["probe"]
+    w_p, m_p = step(world, cfg._replace(profile_stage="pairs"))
+    assert w_p is world and int(m_p["probe"]) == int(jp)
+    for over in (dict(broadphase="fat8x4"), dict(bp_margin=0.5)):
+        w2, m = step(world, cfg._replace(adapt_schedule=None, **over),
+                     collect_contacts=True)
+        assert all(bool(torch.isfinite(c).all())
+                   for c in (*w2.bodies.x, *w2.bodies.v, *w2.bodies.omega))
+        jm = jax.jit(functools.partial(
+            j_step, cfg=jcfg._replace(**cut, **over),
+            collect_contacts=True))(states[260])[1]
+        for a, b in zip(_pair_stream(_np_tree(jm)),
+                        _pair_stream(world_to_numpy(m))):
+            np.testing.assert_array_equal(a, b)
+        assert bool(m["broadphase_rebuilt"]) == bool(
+            jm["broadphase_rebuilt"])
     # the JAX package's own guards: the fused branch is for spheres and the
     # rows solver, the hybrid match needs canonical slots, and the "grid"
     # terrain cull needs the world's face table (the flat solvers and the

@@ -289,7 +289,10 @@ def test_balls_scene_matches_jax(num, with_dropped):
 
 
 def test_balls_mini_settles():
-    """Port twin of tests/test_world.py::test_balls_mini_settles."""
+    """Port twin of tests/test_world.py::test_balls_mini_settles, and the
+    block settles where mgf_tpu's does: within 1e-3 after 400 steps
+    (resting contacts; eager float32 against XLA's fused code), the same
+    contact count."""
     world, cfg = t_balls_scene(num=2, with_dropped=False, device=CPU)
     m = None
     for _ in range(400):
@@ -301,6 +304,12 @@ def test_balls_mini_settles():
     assert np.abs(vy).max() < 1.0
     assert int(m["num_contacts"]) > 0
     assert int(m["broadphase_overflow"]) == 0
+    jw, jcfg = j_balls_scene(num=2, with_dropped=False)
+    f = jax.jit(functools.partial(j_step, cfg=jcfg))
+    for _ in range(400):
+        jw, jm = f(jw)
+    np.testing.assert_allclose(y, np.asarray(jw.bodies.x.y), atol=1e-3)
+    assert int(m["num_contacts"]) == int(jm["num_contacts"])
 
 
 def test_balls_contact_stream_parity():
@@ -333,15 +342,31 @@ def test_balls_contact_stream_parity():
 
 
 def test_generic_off_slice_configs_raise():
-    """The configurations still off the port's slices raise; those that
-    the flat solvers, the face grid and the row compaction brought in run
-    (finite velocities), and "grid" without a face table is refused as
-    mgf_tpu refuses it."""
+    """Every configuration runs on the generic branch: the octant fat
+    grid and bp_margin (no cache state, so an uncached build) give
+    mgf_tpu's pair stream, a broadphase name that is no fat mode runs the
+    packed grid as mgf_tpu's does, and those that the flat solvers, the
+    face grid and the row compaction brought in run (finite velocities);
+    "grid" without a face table is refused as mgf_tpu refuses it."""
     world, cfg = t_balls_scene(2, device=CPU)
-    for bad in (cfg._replace(broadphase="fat8x4"),
-                cfg._replace(bp_margin=0.5)):
-        with pytest.raises(NotImplementedError):
-            step(world, bad)
+    jw, jcfg = j_balls_scene(2)
+    stream = lambda m: (m["pair_contacts"]["i"], m["pair_contacts"]["j"],
+                        m["pair_contacts"]["contact"].valid)
+    for over in (dict(broadphase="fat8x4"), dict(bp_margin=0.5),
+                 dict(broadphase="grid")):
+        w2, m = step(world, cfg._replace(**over), collect_contacts=True)
+        assert all(bool(torch.isfinite(c).all()) for c in w2.bodies.v)
+        if over == dict(broadphase="grid"):
+            # no fat mode: the packed grid, the same step as "packed"
+            _, m_packed = step(world, cfg, collect_contacts=True)
+            for a, b in zip(stream(world_to_numpy(m)),
+                            stream(world_to_numpy(m_packed))):
+                np.testing.assert_array_equal(a, b)
+            continue
+        jm = jax.jit(functools.partial(j_step, cfg=jcfg._replace(**over),
+                                       collect_contacts=True))(jw)[1]
+        for a, b in zip(stream(_np_tree(jm)), stream(world_to_numpy(m))):
+            np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError):
         step(world, cfg._replace(terrain_bp="grid"))
     tg = GridConfig(cell_size=4.0, dim=16, bucket_cap=8)
