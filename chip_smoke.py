@@ -76,15 +76,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
     two-phase sweeps) stepped 280 steps: finite state, overflow 0,
     contacts, and the count of capsules at rest inside the box beside the
     count that missed it and go on falling, as in the reference demo;
-14. K4 (the sequential Gauss-Seidel solve, one CUDA block) against its
-    plain PyTorch version on the card, on the constraint list of the
-    126-body balls_scene(5) landing step, 20 sweeps, both friction modes
-    (atol 1e-4, rtol 1e-5); K4 timed there (mgf friction) and, after
-    [15], at the full demo's list (its mgf friction), with the bound of
-    the mode timed; there it is also held against the plain version run on
-    CPU copies of the inputs (on the card the plain version makes ~60
-    launches per point update, ~3 M per solve at the demo's size: it is
-    timed at the small size only);
+14. K4 (the sequential Gauss-Seidel solve, one CUDA block running the
+    points' body-dependency graph level by level) on the constraint list
+    of the 126-body balls_scene(5) landing step, 20 sweeps, both friction
+    modes: equal (torch.equal, and within atol 1e-4 / rtol 1e-5) to the
+    level plain version on the card and to the serial plain version (the
+    oracle, one point at a time) on CPU copies of the inputs; after [15],
+    at the full demo's list (its mgf friction), equal to the serial plain
+    version on CPU copies.  Printed at both: the levels a sweep, the widest
+    level, the pipelined depth over the sweeps (``sequential_schedule``),
+    K4's time and ns per point update, and its bound, the pipelined depth
+    times one update's latency chain, beside the earlier bound (the whole
+    list as one chain); at the demo's list also the level plain version's
+    time on the card;
 15. the demo on the reference's sequential solver: balls_scene(11,
     solver="sequential") with the raw-lambda friction and K2 on, 280 steps:
     steps/s over the last 80, contacts, max penetration at the last step,
@@ -226,21 +230,15 @@ K1_OPS_PER_ROW_SWEEP = 83     # dv, friction, normal, impulse, sums
 K1_OPS_PER_COL_SWEEP = 12     # the velocity update
 K1_OPS_PER_GATHER_ROW = 12    # gather mode: vb + wb x rb, once per call
 K2_OPS_PER_PAIR = 170
-# one point update of sequential_solve.cu by friction mode: 220 float32
-# operations in both (two relative velocities, the normal impulse, four
-# impulse applications with a Mat3 product each), then the raw lambda's 2
-# adds ("mgf") or the clamp's mul, 2 x (add, max, min) and 2 subs
-# ("textbook"); a negation folds into its consumer's operand and is not
-# counted
-K4_OPS_PER_UPDATE = {"mgf": 222, "textbook": 229}
-# K4's latency chain: the longest run of dependent float32 operations in
-# one point update of sequential_solve.cu (the relative velocity 5, the
-# tangent projection 4, the friction clamp 4 in "textbook" (add, max, min,
-# sub; 0 in "mgf"), the impulse 2, the angular update through the inverse
-# inertia 6, the second relative velocity 5, the normal projection 5, the
-# clamp and impulse 4, the angular update 6), each 4 cycles of latency on
-# Hopper's FP32 pipe, plus the next update's reload of the body it wrote
-# from shared memory (~30 cycles)
+# K4's bound is the dependency graph's depth times one point update's
+# latency chain: the longest run of dependent float32 operations in one
+# update of sequential_solve.cu (the relative velocity 5, the tangent
+# projection 4, the friction clamp 4 in "textbook" (add, max, min, sub; 0
+# in "mgf"), the impulse 2, the angular update through the inverse inertia
+# 6, the second relative velocity 5, the normal projection 5, the clamp and
+# impulse 4, the angular update 6), each 4 cycles of latency on Hopper's
+# FP32 pipe, plus the reload of the bodies the previous level wrote from
+# shared memory (~30 cycles)
 K4_CHAIN_OPS = {"mgf": 37, "textbook": 41}
 K4_OP_CYCLES, K4_SMEM_CYCLES = 4, 30
 K4_TOL = dict(atol=1e-4, rtol=1e-5)
@@ -849,19 +847,6 @@ def phase_capsules_demo(dev):
     return counts
 
 
-def k4_bound(inp, iters, mgf):
-    """K4's (bound_ms, bound_by) in the friction mode ``mgf`` names: the
-    valid flags, the valid points' rows and body indices and the body table
-    read once, v and omega written once; iters x valid points x the
-    update's float32 operations.  Neither is what limits K4: its sweeps are
-    one chain of dependent updates."""
-    C, M = inp["valid"].numel(), inp["bodies"].shape[0]
-    nv = int(inp["valid"].sum())
-    n_bytes = C + nv * (4 * 20 + 8) + M * 4 * 16 + M * 4 * 6
-    ops = K4_OPS_PER_UPDATE["mgf" if mgf else "textbook"]
-    return bound(n_bytes, iters * nv * ops)
-
-
 def _sm_clock_mhz():
     """The card's maximum SM clock, as nvidia-smi reports it."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -870,14 +855,41 @@ def _sm_clock_mhz():
     return float(out.split()[0])
 
 
-def k4_latency_bound(n_updates, mgf):
-    """(ms, ns per update): K4's chain of ``n_updates`` dependent point
-    updates at the latency of each one's dependent float32 operations and
-    shared-memory reload, at the card's maximum SM clock."""
+def k4_update_ns(mgf):
+    """One point update's latency chain in ns (``K4_CHAIN_OPS`` dependent
+    float32 operations and a shared-memory reload) at the card's maximum
+    SM clock."""
     cycles = (K4_CHAIN_OPS["mgf" if mgf else "textbook"] * K4_OP_CYCLES
               + K4_SMEM_CYCLES)
-    ns = 1e3 * cycles / _sm_clock_mhz()
-    return 1e-6 * ns * n_updates, ns
+    return 1e3 * cycles / _sm_clock_mhz()
+
+
+def k4_bound(seq, inp, iters, mgf):
+    """K4's least time on the captured list: its body-dependency graph's
+    depth with the sweeps pipelined (``sequential_schedule`` run on over
+    all ``iters`` sweeps: updates that share no dynamic body may run
+    together, each body's in list order) times one update's latency chain.
+    Returns (bound_ms, the schedule's numbers, ns per update); beside it
+    the earlier design's bound, the whole list as one chain, for the
+    record."""
+    cpu = [inp[k].cpu() for k in ("a", "b", "valid", "bodies")]
+    level = seq.sequential_schedule(*cpu)
+    nv = int(cpu[2].sum())
+    piped = int(seq.sequential_schedule(*cpu, sweeps=iters).max())
+    ns = k4_update_ns(mgf)
+    sched = dict(levels=int(level.max()), piped=piped, n_valid=nv,
+                 widest=int(torch.bincount(level[cpu[2]]).max()) if nv else 0,
+                 chain_ms=1e-6 * ns * iters * nv)
+    return 1e-6 * ns * piped, sched, ns
+
+
+def _k4_sched_str(sched, b_ms, ns):
+    return (f"{sched['levels']} levels a sweep (widest "
+            f"{sched['widest']} points), pipelined depth {sched['piped']}; "
+            f"bound {1e3 * b_ms:.3f} us (depth x {ns:.1f} ns per update; "
+            f"the earlier bound, the list as one chain of "
+            f"iters x {sched['n_valid']} updates: "
+            f"{sched['chain_ms']:.4f} ms)")
 
 
 def _record_sequential(seq, world, cfg):
@@ -887,8 +899,8 @@ def _record_sequential(seq, world, cfg):
         lambda: step(world, cfg._replace(solver="sequential")))[0]
 
 
-def _k4_run(seq, inp, iters, mgf, plain=False):
-    fn = seq.sequential_solve_reference if plain else seq.sequential_solve
+def _k4_run(seq, inp, iters, mgf, fn=None):
+    fn = fn or seq.sequential_solve
     return fn(inp["pts"], inp["a"], inp["b"], inp["valid"], inp["bodies"],
               iters, mgf)
 
@@ -899,10 +911,26 @@ def _vw_err(a, b):
             float((a[:, 3:6] - b[:, 3:6]).abs().max()))
 
 
+def _k4_exact(seq, inp, iters, mgf, out_k, where):
+    """K4's output against the serial plain version (the oracle) run on
+    CPU copies of the inputs: equal bit for bit, and within K4_TOL."""
+    cpu = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in inp.items()}
+    out_s = _k4_run(seq, cpu, iters, mgf, seq.sequential_solve_reference)
+    ev, ew = _vw_err(out_k, out_s)
+    exact = torch.equal(out_k.cpu(), out_s)
+    print(f"[14] K4 vs the serial plain version on the CPU, {where}, "
+          f"friction {'mgf' if mgf else 'textbook'}: torch.equal {exact}, "
+          f"max |dv| {ev:.3g}, |domega| {ew:.3g}", flush=True)
+    torch.testing.assert_close(out_k.cpu(), out_s, **K4_TOL)
+    check(exact, f"K4 differs from the serial plain version ({where})")
+    return max(ev, ew)
+
+
 def phase_k4_small(seq, dev):
-    """[14] K4 against its plain version on the card at the 126-body
-    landing step (the parallel solver brings the demo there, so the inputs
-    do not depend on K4)."""
+    """[14] K4 against its plain versions at the 126-body landing step (the
+    parallel solver brings the demo there, so the inputs do not depend on
+    K4): the level plain version on the card and the serial one on the CPU,
+    both modes, bit for bit."""
     from mgf_tpu_torch import world as tworld
     from mgf_tpu_torch.scenes import balls_scene
     world, cfg = balls_scene(5, device=dev)
@@ -914,60 +942,57 @@ def phase_k4_small(seq, dev):
     err = 0.0
     for mgf in (False, True):
         out_k = _k4_run(seq, inp, iters, mgf)
-        out_p = _k4_run(seq, inp, iters, mgf, plain=True)
+        out_p = _k4_run(seq, inp, iters, mgf,
+                        seq.sequential_solve_levels_reference)
         torch.cuda.synchronize()
         ev, ew = _vw_err(out_k, out_p)
         err = max(err, ev, ew)
-        print(f"[14] K4 vs plain on the card, balls_scene(5) landing "
-              f"({inp['bodies'].shape[0]} body rows, "
+        print(f"[14] K4 vs the level plain version on the card, "
+              f"balls_scene(5) landing ({inp['bodies'].shape[0]} body rows, "
               f"{inp['valid'].numel()} points, {nv} valid), {iters} sweeps, "
-              f"friction {'mgf' if mgf else 'textbook'}: max |dv| {ev:.3g}, "
-              f"|domega| {ew:.3g} (atol 1e-4, rtol 1e-5)", flush=True)
+              f"friction {'mgf' if mgf else 'textbook'}: torch.equal "
+              f"{torch.equal(out_k, out_p)}, max |dv| {ev:.3g}, |domega| "
+              f"{ew:.3g} (atol 1e-4, rtol 1e-5)", flush=True)
         torch.testing.assert_close(out_k, out_p, **K4_TOL)
+        check(torch.equal(out_k, out_p),
+              "K4 differs from the level plain version at the landing")
         check(float((out_k[:, :3] - inp["bodies"][:, :3]).abs().max())
               > 0.1, "K4: the landing solve moved nothing")
+        err = max(err, _k4_exact(seq, inp, iters, mgf, out_k, "landing"))
     ms = _time_ms(lambda: _k4_run(seq, inp, iters, True))
-    # the plain version: ~60 launches per point update, host-bound
-    plain_ms = _time_ms(lambda: _k4_run(seq, inp, iters, True, plain=True),
-                        reps=1, blocks=3)
-    b_ms, b_by = k4_bound(inp, iters, True)
-    chain_ms, chain_ns = k4_latency_bound(iters * nv, True)
+    b_ms, sched, ns = k4_bound(seq, inp, iters, True)
     print(f"[14] K4 at the landing, friction mgf: kernel {ms}, "
-          f"{1e6 * ms / (iters * nv):.1f} ns per valid point-update; plain "
-          f"{plain_ms} (1 call a block: ~60 small launches per point "
-          f"update); bound {b_ms:.6f} ms "
-          f"({b_by}); latency-chain bound {chain_ms:.4f} ms "
-          f"({chain_ns:.1f} ns per update)", flush=True)
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+          f"{1e6 * ms / (iters * nv):.1f} ns per valid point-update; "
+          f"{_k4_sched_str(sched, b_ms, ns)}", flush=True)
+    return dict(err=err)
 
 
 def phase_k4_demo(seq, k4, world, cfg):
     """[14], continued: K4 at the full demo's constraint list (one more
-    sequential step from the state [15] ends in), timed, and held against
-    the plain version on CPU copies of the inputs."""
+    sequential step from the state [15] ends in), held bit for bit against
+    the serial plain version on CPU copies of the inputs, and timed beside
+    the level plain version on the card and the depth-based bound."""
     inp = _record_sequential(seq, world, cfg)
     iters, mgf = inp["iters"], inp["mgf"]
     nv = int(inp["valid"].sum())
     out_k = _k4_run(seq, inp, iters, mgf)
-    cpu = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in inp.items()}
-    out_p = _k4_run(seq, cpu, iters, mgf, plain=True)
-    ev, ew = _vw_err(out_k, out_p)
-    torch.testing.assert_close(out_k.cpu(), out_p, **K4_TOL)
-    ms = _time_ms(lambda: _k4_run(seq, inp, iters, mgf), reps=5)
-    b_ms, b_by = k4_bound(inp, iters, mgf)
-    chain_ms, chain_ns = k4_latency_bound(iters * nv, mgf)
+    err = _k4_exact(seq, inp, iters, mgf, out_k, "the demo's list after [15]")
+    ms = _time_ms(lambda: _k4_run(seq, inp, iters, mgf), reps=20)
+    plain_ms = _time_ms(lambda: _k4_run(
+        seq, inp, iters, mgf, seq.sequential_solve_levels_reference),
+        reps=1, blocks=3)
+    b_ms, sched, ns = k4_bound(seq, inp, iters, mgf)
     print(f"[14] K4 at the demo's list after [15] "
           f"({inp['bodies'].shape[0]} body rows, {inp['valid'].numel()} "
           f"points, {nv} valid, {iters} sweeps, friction "
-          f"{'mgf' if mgf else 'textbook'}): kernel {ms}, "
-          f"{1e6 * ms / (iters * max(nv, 1)):.1f} ns per valid point-update; vs "
-          f"plain on the CPU max |dv| {ev:.3g}, |domega| {ew:.3g} (atol "
-          f"1e-4, rtol 1e-5); bound {b_ms:.6f} ms ({b_by}); latency-chain "
-          f"bound {chain_ms:.4f} ms ({chain_ns:.1f} ns per update)",
-          flush=True)
-    return dict(k4, err=max(k4["err"], ev, ew), ms=ms, bound_ms=b_ms,
-                bound_by=b_by, n_valid=nv)
+          f"{'mgf' if mgf else 'textbook'}): kernel {ms} "
+          f"({1e3 * ms:.2f} us; the earlier one-thread design 9.8670 ms), "
+          f"{1e6 * ms / (iters * max(nv, 1)):.2f} ns per valid "
+          f"point-update; the level plain version on the card {plain_ms}; "
+          f"{_k4_sched_str(sched, b_ms, ns)}; bound / kernel "
+          f"{100 * b_ms / ms:.1f} %", flush=True)
+    return dict(err=max(k4["err"], err), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by="operations", n_valid=nv)
 
 
 def phase_flat_demo(dev, solver):
@@ -2008,8 +2033,9 @@ def main():
     # [15], [16], [21]-[25]; [11], [13], [17], [19] and [20] launch none).  K1 in
     # gather mode at the main path's settled shape (inner 6); K2 at the
     # cold pile's 900,000 pairs; K3 at block 1024, inner 8; K4 at the full
-    # demo's constraint list (ms, bound) with plain_ms at the 126-body
-    # landing
+    # demo's constraint list (ms, plain_ms: the level plain version on the
+    # card), its bound the list's pipelined dependency depth times one
+    # update's chain of dependent float32 operations (k4_bound)
     print(json.dumps({"kernels": [
         row("solver_sweep.inner_sweeps",
             "mgf_tpu_torch/ops/csrc/solver_sweep.cu",

@@ -16,18 +16,25 @@ Inputs, all contiguous:
 * ``bodies`` (M, 16) float32, one row per body: v, omega, inv_mass and the
   row-major 3x3 inverse inertia (:func:`pack_bodies`).
 
-The result is the (M, 6) table of v and omega after the sweeps.  The kernel
-(``csrc/sequential_solve.cu``) is one block: its threads compact the valid
-points, then one thread runs the chain of point updates, the bodies and
-accumulators in shared memory when they fit.  Its bound is that chain's
-latency, not bytes or operations (see the source).
+The result is the (M, 6) table of v and omega after the sweeps.
+
+Two updates that share no dynamic body commute exactly, and a static row
+(:func:`static_rows`: the terrain's) never changes, so the sweeps can run
+level by level over the points' body-dependency graph
+(:func:`sequential_schedule`) with the serial result bit for bit.  The
+kernel (``csrc/sequential_solve.cu``) is one block: it compacts the valid
+points, builds the levels in rounds, stages the bodies and rows in shared
+memory, then runs each level's updates in parallel with a barrier between
+levels.  Its bound is the graph's depth times one update's chain of
+dependent operations, not bytes or operations (see the source).
 
 :func:`sequential_solve` launches the kernel for CUDA tensors and runs
-:func:`sequential_solve_reference`, the plain PyTorch version, for CPU
-tensors; nothing else selects between them.  The plain version loops in
-Python over the valid points in order with each body's 3-vectors as rows of
-(M, 3) tensors: exact, since an invalid point changes nothing, and about
-60 small ops a point update, far too slow on the card at the demo's size.
+:func:`sequential_solve_levels_reference`, the level plain version, for CPU
+tensors; nothing else selects between them.
+:func:`sequential_solve_reference`, the serial plain version (one valid
+point at a time, in order), is the oracle both are held to.  The plain
+versions share one batched update whose every product and sum is an op of
+its own, in the kernel's order.
 """
 
 from __future__ import annotations
@@ -66,55 +73,150 @@ def pack_bodies(v, omega, inv_mass, inv_moment) -> torch.Tensor:
 
 def sequential_solve_reference(pts, body_a, body_b, valid, bodies, iters,
                                mgf):
-    """The plain PyTorch version: solve_sequential's scan body, point by
-    point in Python, in the JAX package's op order."""
-    V = bodies[:, 0:3].clone()
-    W = bodies[:, 3:6].clone()
-    inv_mass = bodies[:, 6]
-    inertia = bodies[:, 7:16].reshape(-1, 3, 3)
+    """The serial plain version, the oracle: solve_sequential's scan body,
+    one valid point at a time in list order, every body row written."""
+    idx = torch.nonzero(valid).flatten()
+    return _solve(pts, body_a, body_b, bodies, iters, mgf,
+                  [idx[k:k + 1] for k in range(idx.numel())],
+                  skip_static=False)
+
+
+def static_rows(bodies):
+    """(M,) bool: the body rows whose inverse mass and nine inverse-inertia
+    entries are all 0.  An update adds 0 * impulse to such a row, so it
+    never changes (for finite impulses, and up to the sign of a zero
+    velocity: +0 stays +0), and no update has to wait for it."""
+    return (bodies[:, 6:16] == 0).all(dim=1)
+
+
+def sequential_schedule(body_a, body_b, valid, bodies, sweeps=1):
+    """(C,) int64 on the inputs' device: the level of each valid point (0
+    where invalid).  In list order, a point's level is 1 + the larger of
+    the last levels given to its dynamic bodies (0 for a static body, see
+    :func:`static_rows`), and becomes the last level of each of them.  So
+    each dynamic body's points have strictly increasing levels in list
+    order, two points of one level share no dynamic body, and solving the
+    levels in turn repeats the serial order's arithmetic on every value.
+    ``sweeps`` > 1 runs the rule on over that many sweeps of the list
+    without starting the levels again (a pipelined schedule) and returns
+    the last sweep's levels: their maximum is the pipelined depth."""
+    static = static_rows(bodies).tolist()
+    last = [0] * len(static)
+    level = [0] * valid.numel()
     idx = torch.nonzero(valid).flatten().tolist()
     a_l, b_l = body_a.tolist(), body_b.tolist()
-    cross = torch.linalg.cross
-    mat_vec = lambda m, x: (m * x).sum(dim=1)
-    # per valid point: its bodies and its fields as views, made once
-    rows = [(a_l[i], b_l[i], *(pts[i, k:k + 3] for k in range(0, 15, 3)),
-             *pts[i, 15:20]) for i in idx]
-    zero = torch.zeros((), dtype=pts.dtype, device=pts.device)
-    acc = [[zero, zero, zero] for _ in idx]
+    for _ in range(sweeps):
+        for i in idx:
+            a, b = a_l[i], b_l[i]
+            lv = 1 + max(last[a], last[b])
+            level[i] = lv
+            for x in (a, b):
+                if not static[x]:
+                    last[x] = lv
+    return torch.tensor(level, dtype=torch.int64, device=body_a.device)
+
+
+def _dot(u, v):
+    return (u[:, 0] * v[:, 0] + u[:, 1] * v[:, 1]) + u[:, 2] * v[:, 2]
+
+
+def _cross(u, v):
+    return torch.stack([u[:, 1] * v[:, 2] - u[:, 2] * v[:, 1],
+                        u[:, 2] * v[:, 0] - u[:, 0] * v[:, 2],
+                        u[:, 0] * v[:, 1] - u[:, 1] * v[:, 0]], dim=1)
+
+
+def _mat_vec(m, x):
+    """(n, 3, 3) row-major matrices times (n, 3) vectors, by column."""
+    return ((m[:, :, 0] * x[:, 0:1] + m[:, :, 1] * x[:, 1:2])
+            + m[:, :, 2] * x[:, 2:3])
+
+
+def _solve(pts, body_a, body_b, bodies, iters, mgf, groups, skip_static):
+    """``iters`` sweeps over ``groups`` (index tensors of points, in turn;
+    the points of one group share no dynamic body), each group's updates
+    as one batch of tensor ops.  Every product, sum and difference is an
+    op of its own, in the kernel's order: three-term sums as (x0*y0 +
+    x1*y1) + x2*y2, the Mat3 product by column and the cross product
+    written out (torch.linalg.cross on the CPU may contract a1*b2 - a2*b1
+    into a fused multiply-add, which the kernel never does), so each value
+    rounds once, as in the kernel, on any platform.  ``skip_static``
+    writes no static row (:func:`static_rows`)."""
+    V = bodies[:, 0:3].clone()
+    W = bodies[:, 3:6].clone()
+    inv_mass = bodies[:, 6:7]
+    inertia = bodies[:, 7:16].reshape(-1, 3, 3)
+    dynamic = ~static_rows(bodies)
+    qs = []
+    for g in groups:
+        a, b = body_a[g].long(), body_b[g].long()
+        p = pts[g]
+        put_a, put_b = ((a[dynamic[a]], b[dynamic[b]]) if skip_static
+                        else (a, b))
+        qs.append(dict(
+            a=a, b=b, put_a=put_a, put_b=put_b, da=dynamic[a],
+            db=dynamic[b], ra=p[:, 0:3], rb=p[:, 3:6], n=p[:, 6:9],
+            t1=p[:, 9:12], t2=p[:, 12:15], friction=p[:, 15], bias=p[:, 16],
+            nm=p[:, 17], tm1=p[:, 18], tm2=p[:, 19], ima=inv_mass[a],
+            imb=inv_mass[b], Ia=inertia[a], Ib=inertia[b],
+            acc=[torch.zeros_like(p[:, 15]) for _ in range(3)]))
     for _ in range(iters):
-        for (a, b, ra, rb, n, t1, t2, friction, bias, nm, tm1, tm2), ac in \
-                zip(rows, acc):
-            acc_n, acc_t1, acc_t2 = ac
+        for q in qs:
+            a, b, ra, rb, ima, imb, Ia, Ib = (q[k] for k in (
+                "a", "b", "ra", "rb", "ima", "imb", "Ia", "Ib"))
+            acc_n, acc_t1, acc_t2 = q["acc"]
             va, wa, vb, wb = V[a], W[a], V[b], W[b]
-            ima, imb, Ia, Ib = inv_mass[a], inv_mass[b], inertia[a], inertia[b]
-            dv = vb + cross(wb, rb) - va - cross(wa, ra)
-            lam1 = -(dv * t1).sum() * tm1
-            lam2 = -(dv * t2).sum() * tm2
+            # friction on both tangents from one dv (solver.rs:220-232)
+            dv = vb + _cross(wb, rb) - va - _cross(wa, ra)
+            lam1 = -_dot(dv, q["t1"]) * q["tm1"]
+            lam2 = -_dot(dv, q["t2"]) * q["tm2"]
             if mgf:
                 f1, f2 = lam1, lam2
                 new1, new2 = acc_t1 + lam1, acc_t2 + lam2
             else:
-                max_l = friction * acc_n
+                max_l = q["friction"] * acc_n
                 new1 = torch.minimum(torch.maximum(acc_t1 + lam1, -max_l),
                                      max_l)
                 new2 = torch.minimum(torch.maximum(acc_t2 + lam2, -max_l),
                                      max_l)
                 f1, f2 = new1 - acc_t1, new2 - acc_t2
-            imp = t1 * f1 + t2 * f2
+            imp = q["t1"] * f1[:, None] + q["t2"] * f2[:, None]
             va = va - imp * ima
-            wa = wa - mat_vec(Ia, cross(ra, imp))
+            wa = wa - _mat_vec(Ia, _cross(ra, imp))
             vb = vb + imp * imb
-            wb = wb + mat_vec(Ib, cross(rb, imp))
-            dv = vb + cross(wb, rb) - va - cross(wa, ra)
-            lam = nm * (-(dv * n).sum() + bias)
+            wb = wb + _mat_vec(Ib, _cross(rb, imp))
+            # projected normal impulse (solver.rs:236-240)
+            dv = vb + _cross(wb, rb) - va - _cross(wa, ra)
+            lam = q["nm"] * (-_dot(dv, q["n"]) + q["bias"])
             new_n = torch.clamp(acc_n + lam, min=0.0)
-            imp = n * (new_n - acc_n)
-            V[a] = va - imp * ima
-            W[a] = wa - mat_vec(Ia, cross(ra, imp))
-            V[b] = vb + imp * imb
-            W[b] = wb + mat_vec(Ib, cross(rb, imp))
-            ac[:] = new_n, new1, new2
+            imp = q["n"] * (new_n - acc_n)[:, None]
+            va = va - imp * ima
+            wa = wa - _mat_vec(Ia, _cross(ra, imp))
+            vb = vb + imp * imb
+            wb = wb + _mat_vec(Ib, _cross(rb, imp))
+            if skip_static:
+                da, db = q["da"], q["db"]
+                va, wa, vb, wb = va[da], wa[da], vb[db], wb[db]
+            # body a first, then b (a point on one body twice: b's wins)
+            V[q["put_a"]], W[q["put_a"]] = va, wa
+            V[q["put_b"]], W[q["put_b"]] = vb, wb
+            q["acc"] = [new_n, new1, new2]
     return torch.cat([V, W], dim=1)
+
+
+def sequential_solve_levels_reference(pts, body_a, body_b, valid, bodies,
+                                      iters, mgf):
+    """The level plain version: each sweep solves the levels of
+    :func:`sequential_schedule` in turn, each level as one batch, and
+    writes no static row.  Its arithmetic is the serial version's, op for
+    op, so the result equals :func:`sequential_solve_reference` bit for
+    bit (a static row too, unless it starts at -0)."""
+    level = sequential_schedule(body_a, body_b, valid, bodies)
+    idx = torch.nonzero(valid).flatten()
+    idx = idx[torch.argsort(level[idx], stable=True)]
+    sizes = torch.bincount(level[idx], minlength=1).tolist()[1:]
+    return _solve(pts, body_a, body_b, bodies, iters, mgf,
+                  torch.split(idx, sizes), skip_static=True)
 
 
 def _check(pts, body_a, body_b, valid, bodies):
@@ -157,26 +259,23 @@ def sequential_solve(pts, body_a, body_b, valid, bodies, iters: int,
     global LAUNCHES
     _check(pts, body_a, body_b, valid, bodies)
     if pts.device.type == "cpu":
-        return sequential_solve_reference(pts, body_a, body_b, valid, bodies,
-                                          iters, mgf)
+        return sequential_solve_levels_reference(pts, body_a, body_b, valid,
+                                                 bodies, iters, mgf)
     if pts.device.type != "cuda":
         raise ValueError(f"sequential_solve runs on cuda or cpu, not "
                          f"{pts.device}")
     fn = _lib()
     C, M = pts.shape[0], bodies.shape[0]
-    body_bytes = 4 * BODY_FLOATS * M
-    in_smem = body_bytes <= _SMEM_CAP
-    smem = min(_SMEM_CAP, (body_bytes if in_smem else 0) + 12 * C)
-    acc_room = smem - (body_bytes if in_smem else 0)
     out = torch.empty_like(bodies)
-    order = torch.empty((max(C, 1),), dtype=torch.int32, device=pts.device)
-    acc = (None if 12 * C <= acc_room else
-           torch.empty((3 * C,), dtype=torch.float32, device=pts.device))
+    iscratch = torch.empty((10 * C + 2 * M + 1,), dtype=torch.int32,
+                           device=pts.device)
+    fscratch = torch.empty((max(23 * C, 1),), dtype=torch.float32,
+                           device=pts.device)
     stream = torch.cuda.current_stream(pts.device).cuda_stream
     err = fn(pts.data_ptr(), body_a.data_ptr(), body_b.data_ptr(),
              valid.data_ptr(), bodies.data_ptr(), out.data_ptr(),
-             order.data_ptr(), None if acc is None else acc.data_ptr(),
-             C, M, int(iters), int(bool(mgf)), int(in_smem), smem, stream)
+             iscratch.data_ptr(), fscratch.data_ptr(), C, M, int(iters),
+             int(bool(mgf)), 1, _SMEM_CAP, stream)
     if err != 0:
         raise RuntimeError(f"sequential_solve kernel launch failed: "
                            f"cudaError {err}")

@@ -1,8 +1,9 @@
-"""mgf_tpu_torch, chip_smoke.py, scripts/torch_profile_step.py and the
-torch demos (demos/balls_torch.py, demos/capsules_torch.py) import
-neither jax nor mgf_tpu (the machine with the card has no JAX), and
-importing them initialises no CUDA context.  The package is walked module
-by module, so a new module is covered without being named here."""
+"""mgf_tpu_torch, chip_smoke.py, scripts/torch_profile_step.py,
+scripts/k4_phases.py and the torch demos (demos/balls_torch.py,
+demos/capsules_torch.py) import neither jax nor mgf_tpu (the machine with
+the card has no JAX), and importing them initialises no CUDA context.
+The package is walked module by module, so a new module is covered
+without being named here."""
 
 import json
 import os
@@ -78,6 +79,10 @@ def test_chip_smoke_imports_no_jax():
 
 def test_profile_script_imports_no_jax():
     _probe_script("torch_profile_step", "scripts")
+
+
+def test_k4_phases_script_imports_no_jax():
+    _probe_script("k4_phases", "scripts")
 
 
 @pytest.mark.parametrize("demo", ["balls_torch", "capsules_torch"])

@@ -11,9 +11,12 @@ the kernel sums rows sequentially with fused multiply-adds, the plain
 version through torch reductions in another order.  K2: valid exactly, t
 and n atol 1e-4, witness points atol 1e-3 (tests/test_ops_native.py's
 gate; rsqrtf is approximate).  K4 against its plain version run on CPU
-copies of the same inputs: v and omega atol 1e-4 + rtol 1e-5 (both round
-every product and sum once, in the same order, except that the plain
-version's three-term sums are torch reductions).
+copies of the same inputs: v and omega atol 1e-4 + rtol 1e-5; and the
+level-by-level K4 against the SERIAL plain version on CPU copies
+(``sequential_solve_reference``, one point at a time): ``torch.equal``, no
+tolerance (both round every product and sum once, in the same order, and
+updates of one level share no dynamic body), on the lists of
+tests/test_torch_sequential_levels.py.
 """
 
 import numpy as np
@@ -299,3 +302,68 @@ def test_sequential_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         seq.sequential_solve(inp["pts"][:, :19].contiguous(), inp["a"],
                              inp["b"], inp["valid"], inp["bodies"], 2, False)
+
+
+def _k4_vs_serial(inp, iters, mgf):
+    """K4 on the card against the serial plain version on CPU copies of
+    the same inputs: equal bit for bit."""
+    dev = inp["pts"].device
+    before = seq.LAUNCHES
+    out = seq.sequential_solve(inp["pts"], inp["a"], inp["b"], inp["valid"],
+                               inp["bodies"], iters, mgf)
+    assert seq.LAUNCHES == before + 1
+    cpu = {k: v.cpu() for k, v in inp.items() if torch.is_tensor(v)}
+    ref = seq.sequential_solve_reference(cpu["pts"], cpu["a"], cpu["b"],
+                                         cpu["valid"], cpu["bodies"], iters,
+                                         mgf)
+    torch.cuda.synchronize(dev)
+    out = out.cpu()
+    assert out.shape == ref.shape == (inp["bodies"].shape[0], 6)
+    assert torch.equal(out, ref), float((out - ref).abs().max())
+    return out, ref
+
+
+def _on(inp, dev):
+    return {k: v.to(dev) for k, v in inp.items() if torch.is_tensor(v)}
+
+
+@pytest.mark.parametrize("mgf", [False, True])
+def test_sequential_kernel_bit_exact_landing(cuda_device, mgf):
+    inp = _landing_inputs(cuda_device)
+    out, _ = _k4_vs_serial(inp, 20, mgf)
+    assert float((out[:, :3] - inp["bodies"][:, :3].cpu()).abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("mgf", [False, True])
+@pytest.mark.parametrize("C,M", [(1000, 50), (257, 9), (1, 2),
+                                 (9000, 3000), (600, 6000)])
+def test_sequential_kernel_bit_exact_shapes(cuda_device, C, M, mgf):
+    from test_torch_sequential_levels import random_list
+    _k4_vs_serial(_on(random_list(C, M), cuda_device), 3, mgf)
+
+
+@pytest.mark.parametrize("C", [1000, 5000])
+def test_sequential_kernel_wide_level(cuda_device, C):
+    """One level of C points, no body shared (2 C + 1 bodies): wider than
+    the block's 512 threads, so each thread takes several points."""
+    from test_torch_sequential_levels import disjoint_list
+    inp = disjoint_list(C)
+    assert int(seq.sequential_schedule(inp["a"], inp["b"], inp["valid"],
+                                       inp["bodies"]).max()) == 1
+    _k4_vs_serial(_on(inp, cuda_device), 3, False)
+
+
+def test_sequential_kernel_chain(cuda_device):
+    """Every point on one dynamic body: as many levels as valid points."""
+    from test_torch_sequential_levels import chain_list
+    _k4_vs_serial(_on(chain_list(), cuda_device), 3, True)
+
+
+def test_sequential_kernel_static_row(cuda_device):
+    """Every partner the static row: it comes out bit for bit as it went
+    in (the kernel never writes it)."""
+    from test_torch_sequential_levels import static_partner_list
+    inp = static_partner_list()
+    out, _ = _k4_vs_serial(_on(inp, cuda_device), 3, False)
+    assert torch.equal(out[-1].view(torch.int32),
+                       inp["bodies"][-1, :6].view(torch.int32))
