@@ -3,8 +3,8 @@ them, drive the flagship path, the generic sphere branch, the mixed
 sphere/capsule pile, the capsules demo, the reference's flat solvers, the
 heightfield terrain scene, GJK/EPA and the world queries, the broadphase
 variants, the refit cache, the stage probes, the capacity world with its
-surgery and checkpoint, the torch demos and the entry point, and check
-what comes out.
+surgery and checkpoint, the torch demos and the entry point, the
+multi-device paths as ranks sharing the card, and check what comes out.
 
     python3 chip_smoke.py
 
@@ -28,11 +28,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
 4. the main path: stress_scene(100_000) stepped 128 steps by
    AdaptiveChunkStepper(chunk=16, light=True), with the physics guards
    checked and K1's launch count held to the solver's outer iterations
-   (one gather-mode launch per outer iteration); its contacts at step 64
-   are [21]'s yardstick
+   (one gather-mode launch per outer iteration); its contacts at steps 64
+   and 128 are [21]'s and [26]'s yardsticks
    (every kernel's count is set to 0 before each path, [4], [7], [8],
-   [11], [13], [15]-[17] and [19]-[25], and read after it; the kernels
-   line sums them);
+   [11], [13], [15]-[17] and [19]-[25], and in every rank of [26]-[28],
+   and read after it; the kernels line sums them);
 5. kernel path against plain path end to end: an 8,000-body pile stepped
    40 steps on the card, copied to the CPU, then one more step on each;
 6. K2 against its plain version at P = 900,000 pairs (the cold pile's 9
@@ -195,7 +195,38 @@ Phases (each prints one line; any failure raises and exits non-zero):
     trajectory's shape (60, 1332, 3), the PPM headers, 61 K2 launches in
     the balls run; then one call of ``entry()``'s step on the card, finite
     metrics;
-26. a JSON line of per-kernel results, then the result line.
+26. the spatial (x-slab halo-exchange) step of mgf_tpu_torch.parallel on
+    the flagship pile: stress_scene(100_000) from scratch, 128 steps on 4
+    gloo ranks sharing the card (every message staged through host
+    memory; halo 4,096 rows per direction; the scene's own config: the
+    bp_every cache, hybrid warm matching, the adaptive schedule, fused_iso
+    count semantics, the "near" terrain cull), re-sharded whenever
+    spatial_stray turns above 0 (counted): per-rank steps/s over steps
+    33-128, rebuilds, warm_hit_frac, comm_floats_per_step (mgf_tpu's
+    formula) beside the bytes and messages each rank really sent per step;
+    halo_overflow, broadphase overflow and drift excess 0 on every step, a
+    finite state, max penetration < 0.5 at step 128, no escaped body,
+    contacts at steps 64 and 128 within 3.5 % of [4]'s (mgf_tpu's own
+    spatial-versus-single gap, scripts/mixed_reference_guards.py
+    --spatial: 3.34 % at 8,000 bodies, 1.06 % at 100,000), no kernel
+    launch; the wall time split into start-up, set-up, steps, checks and
+    exit;
+27. the spatial step on the card against the CPU and against one device:
+    an 8,000-body pile after 40 single-device card steps; one spatial step
+    on 4 card ranks and on 4 CPU ranks from the same state (each rank's
+    halo membership and candidate lists equal, v and omega within 1e-3);
+    the 4 card ranks' 8 steps beside the port's single-device step on the
+    card from the same state with fresh caches (contacts equal at step 8,
+    as mgf_tpu's are on the same scene; positions within 1e-5, mgf_tpu's
+    gap 2.86e-6);
+28. the all-gather (sharded) step on [4]'s pile at step 128, 4 gloo ranks
+    sharing the card, 16 steps: steps/s per rank, bytes and messages per
+    step, contacts at step 1 within 0.1 % of the single-device step's from
+    the same state, overflow 0, a finite state, no escaped body, no kernel
+    launch; then ``dryrun_multichip(4, backend="gloo")`` on the card and
+    ``dryrun_multichip(n, backend="nccl")`` with one rank per card (n = 1
+    on a one-card machine: NCCL's failure to start raises);
+29. a JSON line of per-kernel results, then the result line.
 
 Needs a CUDA card; it exits non-zero without one, and imports no JAX.
 """
@@ -485,7 +516,7 @@ def phase_main_path(dev):
     check(pen < 0.5, f"max penetration {pen}")
     check(launches == expected and launches > 0,
           f"K1 launches {launches} != solver outer iterations {expected}")
-    return counts, world, cfg, contacts64
+    return counts, world, cfg, contacts64, contacts
 
 
 def phase_end_to_end(dev):
@@ -1967,6 +1998,375 @@ def phase_demos_entry(dev):
     return {k: counts[k] + demo.get(k, 0) for k in counts}
 
 
+# ---------------------------------------------------------------------------
+# [26]-[28]: the multi-device paths (mgf_tpu_torch.parallel) as ranks: four
+# processes sharing the one card over gloo (host-staged messages), four CPU
+# ranks, and NCCL with one rank per card
+# ---------------------------------------------------------------------------
+
+N_RANKS = 4
+HALO_MAIN = 4096      # [26]: halo rows per direction at 100k bodies
+HALO_E2E = 1024       # [27]: at 8,000 bodies
+# [26]: contacts at steps 64 and 128 within this share of [4]'s: the worst
+# gap between mgf_tpu's own spatial step on 4 CPU devices and its
+# single-device step on the same pile (scripts/mixed_reference_guards.py
+# --spatial, 128 steps from scratch): 3.34 % at 8,000 bodies (step 128),
+# 1.06 % at 100,000 (212,243 / 212,239 at step 64, 497,946 / 503,295 at
+# step 128).  [4]'s chunk stepper picks its schedule two chunks late and
+# sits 1.87 % below mgf_tpu's single-device step at step 64 (208,260), so
+# 100k's 1.06 + 1.87 % is inside the 8k gap too
+SPATIAL_CONTACT_SHARE = 0.035
+# [27]: positions of the card ranks after 8 steps beside the port's
+# single-device step on the card: mgf_tpu meets a gap of 2.86e-6 on the same
+# scene (--spatial --bodies 8000 --settle 40 --steps 8) with equal
+# contacts; the guard is the CPU tests' per-row tolerance after one step
+SPATIAL_GAP_8 = 1e-5
+SPATIAL_TOL = 1e-3    # [27]: v and omega, card ranks against CPU ranks
+N_SHARDED_STEPS = 16
+
+
+def _rank_counters():
+    """Launch and message counters of this rank's process."""
+    from mgf_tpu_torch.ops import narrowphase, sequential_solve, solver_sweep
+    from mgf_tpu_torch.parallel import comm as pcomm
+    return ((narrowphase, "LAUNCHES"), (sequential_solve, "LAUNCHES"),
+            (solver_sweep, "LAUNCHES"), (solver_sweep, "BLOCKMAJOR_LAUNCHES"),
+            (pcomm, "BYTES"), (pcomm, "MESSAGES"))
+
+
+def _rank_zero():
+    for mod, attr in _rank_counters():
+        setattr(mod, attr, 0)
+
+
+def _rank_launches():
+    """This rank's kernel launches since _rank_zero, as _counts names them."""
+    from mgf_tpu_torch.ops import narrowphase, sequential_solve, solver_sweep
+    return {"K1": solver_sweep.LAUNCHES, "K2": narrowphase.LAUNCHES,
+            "K3": solver_sweep.BLOCKMAJOR_LAUNCHES,
+            "K4": sequential_solve.LAUNCHES}
+
+
+def _timed_steps(comm, world, step_fn, steps, on_step=None):
+    """Step ``steps`` times; per step the wall seconds, the reduced metrics
+    (host floats), and the bytes and messages this rank sent.  ``on_step(k,
+    world, metrics)`` may return a new (world, step_fn)."""
+    from mgf_tpu_torch.parallel import comm as pcomm
+    sync = (torch.cuda.synchronize if comm.device.type == "cuda"
+            else (lambda: None))
+    series = []
+    for k in range(steps):
+        b0, n0 = pcomm.BYTES, pcomm.MESSAGES
+        sync()
+        t0 = time.perf_counter()
+        world, m = step_fn(world)
+        sync()
+        rec = {key: float(v) for key, v in m.items()}
+        rec.update(s=time.perf_counter() - t0, bytes=pcomm.BYTES - b0,
+                   messages=pcomm.MESSAGES - n0)
+        series.append(rec)
+        if on_step is not None:
+            world, step_fn = on_step(k + 1, world, m) or (world, step_fn)
+    return world, series
+
+
+def _phases_str(t_call, t_back, stamps):
+    """Where a ranks call's wall time went, from rank 0's clock stamps
+    (enter, steps start, steps end, leave; the host's one clock)."""
+    enter, s0, s1, leave = stamps
+    return (f"start-up {enter - t_call:.1f} s, set-up {s0 - enter:.1f} s, "
+            f"steps {s1 - s0:.1f} s, checks {leave - s1:.1f} s, exit "
+            f"{t_back - leave:.1f} s")
+
+
+def _gathered_checks(comm, world):
+    """Finite state and escaped bodies of the gathered world (pads out)."""
+    from mgf_tpu_torch.parallel import gather_world
+    g = gather_world(world, comm)
+    alive = g.bodies.shape_r > 0.0
+    b = g.bodies
+    finite = all(bool(torch.isfinite(c[alive]).all())
+                 for c in (*b.x, *b.v, *b.omega))
+    wall = max(float(c.abs().max()) for v in g.terrain for c in (v.x, v.z))
+    out = alive & ((b.x.y < -1.0) | (b.x.x.abs() > wall)
+                   | (b.x.z.abs() > wall))
+    return g, finite, int(out.sum())
+
+
+def _spatial_pile_rank(comm, n_bodies, steps, halo):
+    """[26] on one rank: the flagship pile on the spatial step from
+    scratch, re-sharded whenever a body strays out of halo reach."""
+    from mgf_tpu_torch.parallel import (gather_world, init_spatial_bp_cache,
+                                        make_spatial_step,
+                                        shard_world_spatial)
+    from mgf_tpu_torch.scenes import stress_scene
+    import warnings
+    warnings.simplefilter("ignore")        # pallas_solver is ignored here
+    enter = time.time()
+    world, cfg = stress_scene(n_bodies, device=comm.device)
+
+    def shard(w):
+        ws, bounds = shard_world_spatial(w, comm, cfg=cfg)
+        return (init_spatial_bp_cache(ws, comm, cfg, halo),
+                make_spatial_step(cfg, comm, bounds, halo=halo,
+                                  halo_width=cfg.grid.cell_size))
+
+    w, f = shard(world)
+    del world
+    reshards = []
+
+    def on_step(k, w, m):
+        if int(m["spatial_stray"]) > 0:
+            reshards.append(k)
+            return shard(gather_world(w, comm)._replace(warm=None, bp=None))
+        return None
+
+    _rank_zero()
+    s0 = time.time()
+    w, series = _timed_steps(comm, w, f, steps, on_step)
+    s1 = time.time()
+    launches = _rank_launches()
+    _, finite, escaped = _gathered_checks(comm, w)
+    return dict(series=series, reshards=reshards, launches=launches,
+                finite=finite, escaped=escaped, n_loc=w.bodies.n_bodies,
+                stamps=(enter, s0, s1, time.time()))
+
+
+def phase_spatial_pile(dev, contacts64, contacts128):
+    """[26] stress_scene(100_000) on the spatial step, 4 ranks sharing the
+    card over gloo, 128 steps from scratch."""
+    from mgf_tpu_torch.parallel import run_ranks
+    steps = 128
+    t_call = time.time()
+    out = run_ranks(_spatial_pile_rank, N_RANKS, "cuda", "gloo", N_MAIN,
+                    steps, HALO_MAIN, timeout_s=900)
+    t_back = time.time()
+    wall = t_back - t_call
+    ser = out[0]["series"]
+    late = slice(32, steps)
+    sps = [round((steps - 32) / sum(r["s"] for r in o["series"][late]), 3)
+           for o in out]
+    col = lambda key: [r[key] for r in ser]
+    c64, c128 = int(ser[63]["num_contacts"]), int(ser[-1]["num_contacts"])
+    last = ser[-1]
+    bytes_step = [int(np.mean([r["bytes"] for r in o["series"][late]]))
+                  for o in out]
+    msgs_step = [int(np.mean([r["messages"] for r in o["series"][late]]))
+                 for o in out]
+    launches = {k: sum(o["launches"][k] for o in out)
+                for k in out[0]["launches"]}
+    print(f"[26] spatial step, stress_scene({N_MAIN}) on {N_RANKS} gloo "
+          f"ranks sharing the card (host-staged), halo {HALO_MAIN}, "
+          f"{steps} steps from scratch in {wall:.1f} s wall ("
+          f"{_phases_str(t_call, t_back, out[0]['stamps'])}): steps/s per "
+          f"rank over steps 33-{steps} {sps}; "
+          f"contacts at step 64 {c64} ([4] {contacts64}, ratio "
+          f"{c64 / contacts64:.6f}), at step {steps} {c128} ([4] "
+          f"{contacts128}, ratio {c128 / contacts128:.6f}); max penetration "
+          f"{last['max_penetration']:.4f}; rebuilds "
+          f"{int(sum(col('broadphase_rebuilt')))}; warm_hit_frac "
+          f"{last['warm_hit_frac']:.4f}; halo_overflow worst "
+          f"{int(max(col('halo_overflow')))}; spatial_stray worst "
+          f"{int(max(col('spatial_stray')))}, re-shards after steps "
+          f"{out[0]['reshards']}; overflow worst "
+          f"{int(max(col('broadphase_overflow')))}; drift excess worst "
+          f"{max(col('broadphase_cache_drift_excess'))}; escaped bodies "
+          f"{out[0]['escaped']}; comm_floats_per_step (mgf_tpu's formula, all "
+          f"ranks) {int(last['comm_floats_per_step'])} = "
+          f"{4 * int(last['comm_floats_per_step'])} bytes; bytes really "
+          f"sent per step and rank {bytes_step}, messages per step and rank "
+          f"{msgs_step}; kernel launches {launches}", flush=True)
+    check(all(o["finite"] for o in out), "spatial pile: non-finite state")
+    check(max(col("halo_overflow")) == 0, "spatial pile: halo overflow")
+    check(max(col("broadphase_overflow")) == 0,
+          "spatial pile: broadphase overflow")
+    check(max(col("broadphase_cache_drift_excess")) == 0.0,
+          "spatial pile: drift excess")
+    check(last["max_penetration"] < 0.5,
+          f"spatial pile: max penetration {last['max_penetration']}")
+    check(out[0]["escaped"] == 0,
+          f"spatial pile: {out[0]['escaped']} bodies escaped")
+    for c, ref, k in ((c64, contacts64, 64), (c128, contacts128, steps)):
+        check(abs(c - ref) <= SPATIAL_CONTACT_SHARE * ref,
+              f"spatial pile: contacts {c} at step {k} vs [4]'s {ref}")
+    check(not any(launches.values()),
+          f"spatial pile launched a hand-written kernel: {launches}")
+    return launches
+
+
+def _spatial_8k_rank(comm, np_world, cfg, steps, halo):
+    """[27] on one rank: ``steps`` spatial steps of the 8k pile; the
+    gathered cache and bodies after step 1, every step's metrics and the
+    gathered bodies after the last."""
+    from mgf_tpu_torch import world_from_numpy
+    from mgf_tpu_torch.parallel import (gather_world, init_spatial_bp_cache,
+                                        make_spatial_step,
+                                        shard_world_spatial)
+    import warnings
+    warnings.simplefilter("ignore")
+    enter = time.time()
+    w, bounds = shard_world_spatial(world_from_numpy(np_world, comm.device),
+                                    comm, cfg=cfg)
+    w = init_spatial_bp_cache(w, comm, cfg, halo)
+    f = make_spatial_step(cfg, comm, bounds, halo=halo,
+                          halo_width=cfg.grid.cell_size)
+    first = {}
+
+    def on_step(k, w, m):
+        if k == 1:
+            g = gather_world(w, comm)
+            first.update(bp=g.bp, bodies=g.bodies)
+
+    _rank_zero()
+    s0 = time.time()
+    w, series = _timed_steps(comm, w, f, steps, on_step)
+    s1 = time.time()
+    final = gather_world(w, comm).bodies
+    return dict(first=first, series=series, launches=_rank_launches(),
+                final=final, stamps=(enter, s0, s1, time.time()))
+
+
+def phase_spatial_card_vs_cpu(dev):
+    """[27] on an 8,000-body pile after 40 single-device card steps: one
+    spatial step on 4 card ranks and on 4 CPU ranks from the same state
+    (halo membership and candidate lists equal, v and omega within 1e-3),
+    then 8 steps of the card ranks beside the port's single-device step on
+    the card."""
+    from mgf_tpu_torch import world_from_numpy, world_to_numpy
+    from mgf_tpu_torch.parallel import run_ranks
+    from mgf_tpu_torch.scenes import stress_scene
+    from mgf_tpu_torch.world import init_bp_cache, init_warm, step
+    world, cfg = stress_scene(N_E2E, device=dev)
+    for _ in range(40):
+        world, _ = step(world, cfg)
+    np_world = world_to_numpy(world._replace(warm=None, bp=None))
+    t_call = time.time()
+    card = run_ranks(_spatial_8k_rank, N_RANKS, "cuda", "gloo", np_world,
+                     cfg, 8, HALO_E2E, timeout_s=600)[0]
+    t_back = time.time()
+    host = run_ranks(_spatial_8k_rank, N_RANKS, "cpu", "gloo", np_world,
+                     cfg, 1, HALO_E2E, timeout_s=600)[0]
+    t_host = time.time()
+    fields = ("sl_idx", "sl_ok", "sr_idx", "sr_ok", "partner", "ok")
+    diff = {f: int(np.sum(getattr(card["first"]["bp"], f)
+                          != getattr(host["first"]["bp"], f)))
+            for f in fields}
+    err = max(float(np.abs(getattr(card["first"]["bodies"], f)[k]
+                           - getattr(host["first"]["bodies"], f)[k]).max())
+              for f in ("v", "omega") for k in range(3))
+    single = init_bp_cache(init_warm(world_from_numpy(np_world, dev), cfg),
+                           cfg)
+    c_single = []
+    for _ in range(8):
+        single, m = step(single, cfg)
+        c_single.append(int(m["num_contacts"]))
+    c_card = [int(r["num_contacts"]) for r in card["series"]]
+    order = np.argsort(np_world.bodies.x.x, kind="stable")
+    pos = lambda b: np.stack([np.asarray(c) for c in b.x], -1)
+    gap = float(np.abs(pos(card["final"])[:N_E2E]
+                       - pos(world_to_numpy(single.bodies))[order]).max())
+    members = int(card["first"]["bp"].sl_ok.sum()
+                  + card["first"]["bp"].sr_ok.sum())
+    print(f"[27] {N_E2E}-body pile after 40 card steps, {N_RANKS} gloo ranks "
+          f"(halo {HALO_E2E}), one spatial step on the card against the CPU: "
+          f"halo members {members}, mismatches per field {diff}, max "
+          f"|dv|,|domega| {err:.3g} (atol {SPATIAL_TOL}); 8 steps beside the "
+          f"single-device step on the card: contacts ranks {c_card} / single "
+          f"{c_single}, position gap {gap:.3g} (limit {SPATIAL_GAP_8}; "
+          f"mgf_tpu 2.86e-6); card ranks: "
+          f"{_phases_str(t_call, t_back, card['stamps'])}; CPU ranks: "
+          f"{_phases_str(t_back, t_host, host['stamps'])}", flush=True)
+    check(not any(diff.values()), f"card vs CPU ranks: halo membership or "
+          f"candidate lists differ {diff}")
+    check(err <= SPATIAL_TOL, f"card vs CPU ranks: v/omega differ by {err}")
+    check(c_card[-1] == c_single[-1],
+          f"ranks vs single device: contacts {c_card} vs {c_single}")
+    check(gap <= SPATIAL_GAP_8, f"ranks vs single device: gap {gap}")
+    return {k: card["launches"][k] for k in card["launches"]}
+
+
+def _sharded_rank(comm, np_world, cfg, steps):
+    """[28] on one rank: the all-gather step on the rank-cut pile."""
+    from mgf_tpu_torch import world_from_numpy
+    from mgf_tpu_torch.parallel import make_sharded_step, shard_world
+    import warnings
+    warnings.simplefilter("ignore")     # bp_every: rebuilt every step here
+    enter = time.time()
+    w = shard_world(world_from_numpy(np_world, comm.device), comm)
+    f = make_sharded_step(cfg, comm)
+    _rank_zero()
+    s0 = time.time()
+    w, series = _timed_steps(comm, w, f, steps)
+    s1 = time.time()
+    launches = _rank_launches()
+    _, finite, escaped = _gathered_checks(comm, w)
+    return dict(series=series, launches=launches, finite=finite,
+                escaped=escaped, stamps=(enter, s0, s1, time.time()))
+
+
+def phase_sharded_dryrun(dev, pile_np, pile_cfg):
+    """[28] the all-gather step on [4]'s pile at step 128, 4 ranks sharing
+    the card, 16 steps; ``dryrun_multichip`` over gloo on 4 card ranks and
+    over NCCL with one rank per card."""
+    from mgf_tpu_torch import world_from_numpy
+    from mgf_tpu_torch.entry import dryrun_multichip
+    from mgf_tpu_torch.parallel import run_ranks
+    from mgf_tpu_torch.world import init_bp_cache, init_warm, step
+    w1 = init_bp_cache(init_warm(world_from_numpy(pile_np, dev), pile_cfg),
+                       pile_cfg)
+    c_single = int(step(w1, pile_cfg._replace(adapt_schedule=None))[1][
+        "num_contacts"])
+    del w1
+    t_call = time.time()
+    out = run_ranks(_sharded_rank, N_RANKS, "cuda", "gloo", pile_np,
+                    pile_cfg, N_SHARDED_STEPS, timeout_s=900)
+    t_back = time.time()
+    wall = t_back - t_call
+    ser = out[0]["series"]
+    sps = [round((N_SHARDED_STEPS - 1) / sum(r["s"] for r in o["series"][1:]),
+                 3) for o in out]
+    c1 = int(ser[0]["num_contacts"])
+    bytes_step = [int(np.mean([r["bytes"] for r in o["series"]]))
+                  for o in out]
+    msgs_step = [int(np.mean([r["messages"] for r in o["series"]]))
+                 for o in out]
+    overflow = int(max(r["broadphase_overflow"] for r in ser))
+    pen = ser[-1]["max_penetration"]
+    launches = {k: sum(o["launches"][k] for o in out)
+                for k in out[0]["launches"]}
+    print(f"[28] sharded (all-gather) step on [4]'s pile at step 128, "
+          f"{N_RANKS} gloo ranks sharing the card, {N_SHARDED_STEPS} steps "
+          f"in {wall:.1f} s wall ({_phases_str(t_call, t_back, out[0]['stamps'])}"
+          f"): steps/s per rank over "
+          f"steps 2-{N_SHARDED_STEPS} {sps}; contacts at step 1 {c1} "
+          f"(single-device step from the same state {c_single}), at step "
+          f"{N_SHARDED_STEPS} {int(ser[-1]['num_contacts'])}; max "
+          f"penetration {pen:.4f}; overflow worst {overflow}; escaped "
+          f"{out[0]['escaped']}; bytes sent per step and rank {bytes_step}, "
+          f"messages per step and rank {msgs_step}; kernel launches "
+          f"{launches}", flush=True)
+    check(all(o["finite"] for o in out), "sharded step: non-finite state")
+    check(overflow == 0, f"sharded step: overflow {overflow}")
+    check(abs(c1 - c_single) <= 0.001 * c_single,
+          f"sharded step: contacts {c1} vs single device {c_single}")
+    check(out[0]["escaped"] == 0, "sharded step: escaped bodies")
+    check(not any(launches.values()),
+          f"sharded step launched a hand-written kernel: {launches}")
+    t0 = time.perf_counter()
+    lines = dryrun_multichip(N_RANKS, device="cuda", backend="gloo")
+    gloo_s = time.perf_counter() - t0
+    n_cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    lines_n = dryrun_multichip(n_cards, device="cuda", backend="nccl")
+    nccl_s = time.perf_counter() - t0
+    print(f"[28] dryrun_multichip({N_RANKS}, gloo on the card) in "
+          f"{gloo_s:.1f} s: {len(lines)} cases OK; dryrun_multichip("
+          f"{n_cards}, nccl, one rank per card) in {nccl_s:.1f} s: "
+          f"{len(lines_n)} cases OK", flush=True)
+    check(len(lines) == 3 and len(lines_n) == 3, "dryrun_multichip cases")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1991,7 +2391,8 @@ def main():
     print(f"[2] kernels built in {wall_s:.2f} s wall, one nvcc per source "
           f"in parallel ({per_src})", flush=True)
     k1 = phase_kernel(ss, dev)
-    main_counts, pile, pile_cfg, contacts64 = phase_main_path(dev)
+    main_counts, pile, pile_cfg, contacts64, contacts128 = phase_main_path(
+        dev)
     paths = [main_counts]
     phase_end_to_end(dev)
     k2 = phase_k2(nph, dev)
@@ -2017,8 +2418,13 @@ def main():
     paths.append(phase_bp_margin(pile, pile_cfg))
     paths.append(phase_probes(pile, pile_cfg, dev))
     paths.append(phase_capacity(pile, pile_cfg, dev))
+    from mgf_tpu_torch import world_to_numpy
+    pile_np = world_to_numpy(pile._replace(warm=None, bp=None))
     del pile
     paths.append(phase_demos_entry(dev))
+    paths.append(phase_spatial_pile(dev, contacts64, contacts128))
+    paths.append(phase_spatial_card_vs_cpu(dev))
+    paths.append(phase_sharded_dryrun(dev, pile_np, pile_cfg))
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
     def row(name, source, replaces, n, r):
@@ -2030,7 +2436,8 @@ def main():
 
     # no single PyTorch call computes K1, K2, K3 or K4: library_ms is null.
     # launches: each kernel's count summed over the paths ([4], [7], [8],
-    # [15], [16], [21]-[25]; [11], [13], [17], [19] and [20] launch none).  K1 in
+    # [15], [16], [21]-[25]; [11], [13], [17], [19], [20] and the ranks of
+    # [26]-[28] launch none).  K1 in
     # gather mode at the main path's settled shape (inner 6); K2 at the
     # cold pile's 900,000 pairs; K3 at block 1024, inner 8; K4 at the full
     # demo's constraint list (ms, plain_ms: the level plain version on the

@@ -17,9 +17,11 @@ convex supports (``gjk``) and the world queries: AABB overlap and ray casts
 through the dense scans or the DDA grids (``queries``); every broadphase
 mode and cache, the stage probes, world surgery and the capacity world
 (``world``), checkpoints, slot tables, metrics and the debug mode
-(``utils``), and the entry point (``entry``).  ``gjk``, ``queries`` and
-``utils`` run as plain PyTorch, as the JAX package runs them as plain
-``jnp``.
+(``utils``), the entry point and the multi-device dry run (``entry``), and
+the multi-device paths (``parallel``: the x-slab halo-exchange step and
+the all-gather step, each device of the JAX package's mesh one rank of
+``torch.distributed``).  ``gjk``, ``queries``, ``utils`` and ``parallel``
+run as plain PyTorch, as the JAX package runs them as plain ``jnp``.
 
 The scene builders, ``make_world`` and ``SceneBuilder.build`` put their
 tensors on the CUDA card unless the caller names another ``device``.  This

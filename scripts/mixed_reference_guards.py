@@ -14,7 +14,16 @@ broadphase modes fat27x4 (the scene's own), fat, fat8 and fat8x4 on
 chip_smoke.py [21]'s grids, 64 steps from the initial block: the pair reach
 excess at each 16th step (where chip_smoke.py's light chunks report it)
 and its worst over every step, overflow, drift excess, contacts and max
-penetration at the last step.
+penetration at the last step.  With ``--spatial`` the sphere pile
+``stress_scene(--bodies)`` on mgf_tpu's spatial (x-slab halo-exchange)
+step over 4 virtual CPU devices beside its single-device step, both from
+the same state with fresh caches (after ``--settle`` single-device steps
+from the initial block): at every 16th step and the last, the contact
+counts of both and their ratio, the largest position gap of one body
+between the two runs, the halo rows the pile needs (the most live bodies
+of one shard within the halo band of one slab edge: the cell size plus the
+body's build slack) and the halo metrics at ``--halo`` (chip_smoke.py [26]
+and [27]'s guards).
 
 Steps ``mgf_tpu.scenes.stress_scene(--bodies, mixed=True)`` with the JAX
 package on the CPU for ``--steps`` steps from the initial block and prints
@@ -33,6 +42,10 @@ y = -1 or outside the walls.
     JAX_PLATFORMS=cpu python scripts/mixed_reference_guards.py --gjk
     JAX_PLATFORMS=cpu python scripts/mixed_reference_guards.py \
         --fat-variants --bodies 8000 --steps 64
+    JAX_PLATFORMS=cpu python scripts/mixed_reference_guards.py \
+        --spatial --bodies 8000 --steps 128 --halo 1024
+    JAX_PLATFORMS=cpu python scripts/mixed_reference_guards.py \
+        --spatial --bodies 8000 --settle 40 --steps 8 --halo 1024
 
 Takes about 0.5 s per step at 8,000 bodies and 1.7 s at 30,000 on 8 CPU
 cores, after a 20-40 s compile; the capsules demo about 8 min at NUM = 5
@@ -70,11 +83,21 @@ def main():
                     help="GJK/EPA on bench.py's 8,192 OBB pairs instead")
     ap.add_argument("--fat-variants", action="store_true",
                     help="the sphere pile in each fat broadphase mode")
+    ap.add_argument("--spatial", action="store_true",
+                    help="the sphere pile on the spatial step (4 devices) "
+                    "beside the single-device step")
+    ap.add_argument("--settle", type=int, default=0,
+                    help="--spatial: single-device steps before the two "
+                    "runs start")
+    ap.add_argument("--halo", type=int, default=1024,
+                    help="--spatial: halo rows per direction")
     args = ap.parse_args()
     if args.gjk:
         return gjk_pairs()
     if args.fat_variants:
         return fat_variants(args.bodies, args.steps)
+    if args.spatial:
+        return spatial(args.bodies, args.steps, args.settle, args.halo)
 
     import jax
     from mgf_tpu.scenes import capsules_scene, stress_scene
@@ -287,6 +310,74 @@ def fat_variants(n_bodies, steps):
               f"{max(over)}; drift excess worst {max(drift)}; contacts "
               f"{int(m['num_contacts'])}; max penetration "
               f"{float(m['max_penetration']):.4f}", flush=True)
+
+
+N_DEV = 4
+
+
+def spatial(n_bodies, steps, settle, halo):
+    """stress_scene(n_bodies) on the spatial step over N_DEV virtual CPU
+    devices beside the single-device step, from the same state."""
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (flags + " --xla_force_host_platform_"
+                                   f"device_count={N_DEV}").strip()
+    import jax
+    from jax.sharding import Mesh
+    from mgf_tpu.parallel import (init_spatial_bp_cache, make_spatial_step,
+                                  shard_world_spatial)
+    from mgf_tpu.scenes import stress_scene
+    from mgf_tpu.world import init_bp_cache, init_warm, step
+    world, cfg = stress_scene(n_bodies)
+    f = jax.jit(functools.partial(step, cfg=cfg))
+    for _ in range(settle):
+        world, _ = f(world)
+    world = world._replace(warm=None, bp=None)
+    mesh = Mesh(np.array(jax.devices("cpu")[:N_DEV]), ("b",))
+    assert mesh.devices.size == N_DEV
+    hw = cfg.grid.cell_size
+    wsp, bounds = shard_world_spatial(world, mesh, cfg=cfg)
+    wsp = init_spatial_bp_cache(wsp, mesh, cfg, halo=halo)
+    fsp = make_spatial_step(cfg, mesh, bounds, halo=halo, halo_width=hw)
+    single = init_bp_cache(init_warm(world, cfg), cfg)
+    order = np.argsort(np.asarray(world.bodies.x.x), kind="stable")
+    n_loc = wsp.bodies.n_bodies // N_DEV
+    need, hov, stray, rebuilds = 0, 0, 0, 0
+    for k in range(1, steps + 1):
+        single, ms = f(single)
+        wsp, msp = fsp(wsp)
+        hov = max(hov, int(msp["halo_overflow"]))
+        stray = max(stray, int(msp["spatial_stray"]))
+        rebuilds += int(msp["broadphase_rebuilt"])
+        b = wsp.bodies
+        x = np.asarray(b.x.x) + np.asarray(b.delta.x)
+        band = hw + np.asarray(wsp.bp.slack)
+        alive = np.asarray(b.shape_r) > 0.0
+        for e in range(1, N_DEV):
+            lo_sh = slice((e - 1) * n_loc, e * n_loc)
+            hi_sh = slice(e * n_loc, (e + 1) * n_loc)
+            need = max(need, int(np.sum(
+                alive[lo_sh] & (x[lo_sh] >= bounds[e] - band[lo_sh]))),
+                int(np.sum(alive[hi_sh]
+                           & (x[hi_sh] <= bounds[e] + band[hi_sh]))))
+        if k % 16 and k != steps:
+            continue
+        pos = lambda w: np.stack([np.asarray(c) for c in w.bodies.x], -1)
+        gap = float(np.abs(pos(wsp)[:n_bodies] - pos(single)[order]).max())
+        c_sp, c_1 = int(msp["num_contacts"]), int(ms["num_contacts"])
+        print(f"step {k}: contacts spatial {c_sp} / single {c_1} (ratio "
+              f"{c_sp / max(c_1, 1):.6f}), position gap {gap:.6g}, max "
+              f"penetration {float(msp['max_penetration']):.4f} / "
+              f"{float(ms['max_penetration']):.4f}; halo rows needed so far "
+              f"{need} (halo {halo}, n_loc {n_loc}), halo_overflow worst "
+              f"{hov}, stray worst {stray}, rebuilds {rebuilds}, "
+              f"warm_hit_frac {float(msp['warm_hit_frac']):.4f}, "
+              f"comm_floats_per_step {int(msp['comm_floats_per_step'])}",
+              flush=True)
+    print(f"mgf_tpu stress_scene({n_bodies}) after {settle} single-device "
+          f"steps, {steps} steps spatial on {N_DEV} "
+          f"{jax.devices()[0].platform} devices beside single-device",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """mgf_tpu_torch, chip_smoke.py, scripts/torch_profile_step.py,
 scripts/k4_phases.py and the torch demos (demos/balls_torch.py,
 demos/capsules_torch.py) import neither jax nor mgf_tpu (the machine with
-the card has no JAX), and importing them initialises no CUDA context.
+the card has no JAX), and importing them initialises no CUDA context and
+(mgf_tpu_torch.parallel) starts no process group.
 The package is walked module by module, so a new module is covered
 without being named here."""
 
@@ -28,7 +29,8 @@ import torch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "mgf_tpu" or m.startswith("mgf_tpu."))
-print(json.dumps([names, bad, torch.cuda.is_initialized()]))
+print(json.dumps([names, bad, torch.cuda.is_initialized(),
+                  torch.distributed.is_initialized()]))
 """
 
 
@@ -37,15 +39,19 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    names, bad, cuda_init = json.loads(out.stdout.strip().splitlines()[-1])
+    names, bad, cuda_init, group_init = json.loads(
+        out.stdout.strip().splitlines()[-1])
     assert bad == [], bad
     assert cuda_init is False
-    assert len(names) >= 28
+    assert group_init is False
+    assert len(names) >= 32
     assert {"mgf_tpu_torch.gjk", "mgf_tpu_torch.queries",
             "mgf_tpu_torch.entry", "mgf_tpu_torch.utils",
             "mgf_tpu_torch.utils.checkpoint", "mgf_tpu_torch.utils.debug",
-            "mgf_tpu_torch.utils.metrics",
-            "mgf_tpu_torch.utils.slots"} <= set(names)
+            "mgf_tpu_torch.utils.metrics", "mgf_tpu_torch.utils.slots",
+            "mgf_tpu_torch.parallel", "mgf_tpu_torch.parallel.comm",
+            "mgf_tpu_torch.parallel.sharded",
+            "mgf_tpu_torch.parallel.spatial"} <= set(names)
 
 
 _SMOKE_PROBE = """
