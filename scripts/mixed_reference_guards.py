@@ -14,7 +14,18 @@ broadphase modes fat27x4 (the scene's own), fat, fat8 and fat8x4 on
 chip_smoke.py [21]'s grids, 64 steps from the initial block: the pair reach
 excess at each 16th step (where chip_smoke.py's light chunks report it)
 and its worst over every step, overflow, drift excess, contacts and max
-penetration at the last step.  With ``--spatial`` the sphere pile
+penetration at the last step.  With ``--oracle balls|flagship|mixed`` the
+f64 oracle's per-step resync against mgf_tpu's own step, at chip_smoke.py
+[29], [31] and [32]'s scenes and windows (the oracle alone for ``--settle``
+steps, then each step its state pushed into the step and the contact
+streams diffed, as scripts/parity_curves.py and scripts/mixed_resync.py
+do): the 1,332-ball demo on the generic branch with the Pallas pair
+kernel (interpreted on the CPU), stress_scene(--bodies) on
+its shipped fused_iso config with the warm rows and the bp_every cache
+carried from step to step, and the 6-layer mixed pile with
+cap_manifold="ends"; with ``--oracle cold`` scripts/cold_bridge.py's row
+(the cold 20-sweep config on stress_scene(--bodies), max penetration at
+every 30th step from 150 on).  With ``--spatial`` the sphere pile
 ``stress_scene(--bodies)`` on mgf_tpu's spatial (x-slab halo-exchange)
 step over 4 virtual CPU devices beside its single-device step, both from
 the same state with fresh caches (after ``--settle`` single-device steps
@@ -46,6 +57,8 @@ y = -1 or outside the walls.
         --spatial --bodies 8000 --steps 128 --halo 1024
     JAX_PLATFORMS=cpu python scripts/mixed_reference_guards.py \
         --spatial --bodies 8000 --settle 40 --steps 8 --halo 1024
+    JAX_PLATFORMS=cpu python scripts/mixed_reference_guards.py \
+        --oracle flagship --bodies 2000     # balls | flagship | mixed | cold
 
 Takes about 0.5 s per step at 8,000 bodies and 1.7 s at 30,000 on 8 CPU
 cores, after a 20-40 s compile; the capsules demo about 8 min at NUM = 5
@@ -91,7 +104,15 @@ def main():
                     "runs start")
     ap.add_argument("--halo", type=int, default=1024,
                     help="--spatial: halo rows per direction")
+    ap.add_argument("--oracle", choices=("balls", "flagship", "mixed",
+                                         "cold"),
+                    help="the f64 oracle's resync of chip_smoke.py [29], "
+                    "[31] or [32], or cold_bridge.py's row, instead")
     args = ap.parse_args()
+    if args.oracle == "cold":
+        return cold_bridge(args.bodies)
+    if args.oracle:
+        return oracle_resync(args.oracle, args.bodies)
     if args.gjk:
         return gjk_pairs()
     if args.fat_variants:
@@ -378,6 +399,105 @@ def spatial(n_bodies, steps, settle, halo):
           f"steps, {steps} steps spatial on {N_DEV} "
           f"{jax.devices()[0].platform} devices beside single-device",
           flush=True)
+
+
+# chip_smoke.py's windows: (oracle-only steps, resync steps)
+ORACLE_WINDOWS = {"balls": (60, 160), "flagship": (100, 100),
+                  "mixed": (150, 120)}
+
+
+def oracle_resync(case, n_bodies):
+    """mgf_tpu's own resync against the f64 oracle at chip_smoke.py [29],
+    [31] or [32]'s scene and windows: the worst deltas, the misses and the
+    steps they fall on, the one-step velocity gap, the ends slot-1 and
+    capsule-terrain counts."""
+    import time
+
+    import jax
+    from mgf_tpu import oracle
+    from mgf_tpu.scenes import balls_scene, stress_scene
+    from mgf_tpu.world import step
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "..", "tests"))
+    from test_oracle import _diff_streams
+
+    settle, steps = ORACLE_WINDOWS[case]
+    kw = {}
+    if case == "balls":
+        world, cfg = balls_scene(11)
+        cfg = cfg._replace(pallas_narrowphase=True)   # [29] runs K2
+        kw = dict(mgf_friction=True)
+    elif case == "flagship":
+        world, cfg = stress_scene(n_bodies)
+    else:
+        world, cfg = stress_scene(n_bodies, mixed=True, layers=6)
+        kw = dict(cap_manifold="ends")
+    carry = case == "flagship"
+    f = jax.jit(functools.partial(step, cfg=cfg, collect_contacts=True))
+    ow = oracle.from_world(world)
+    t0 = time.perf_counter()
+    for _ in range(settle):
+        ow, _ = oracle.oracle_step(ow, dt=cfg.dt, iters=cfg.solver_iters,
+                                   **kw)
+    worst = dict(dt=0.0, dn=0.0, dp=0.0, miss=0, total=0)
+    stype = np.asarray(world.bodies.shape_type)
+    template, dvs, miss_steps, hit = world, [], [], []
+    slot1 = cterr = 0
+    for s in range(steps):
+        w, m = f(oracle.to_world(ow, template))
+        ow, rec = oracle.oracle_step(ow, dt=cfg.dt, iters=cfg.solver_iters,
+                                     **kw)
+        before = worst["miss"]
+        worst = _diff_streams(m, rec, worst)
+        if worst["miss"] > before:
+            miss_steps.append((settle + s + 1, worst["miss"] - before))
+        dvs.append(float(np.abs(np.asarray(w.bodies.v.y)
+                                - ow.v[:, 1]).max()))
+        hit.append(float(m["warm_hit_frac"]))
+        kind = np.asarray(rec["kind"])
+        slot1 += int(np.sum((kind == 1) & (np.asarray(rec["slot"]) == 1)))
+        cterr += int(np.sum((kind == 0)
+                            & (stype[np.asarray(rec["i"], np.int64)] == 1)))
+        if carry:
+            template = w
+    dvs = np.asarray(dvs)
+    print(f"mgf_tpu oracle resync {case} ({stype.shape[0]} bodies) on "
+          f"{jax.devices()[0].platform}, oracle alone {settle} steps, "
+          f"resync {steps} (caches carried: {carry}) in "
+          f"{time.perf_counter() - t0:.1f} s: contacts compared "
+          f"{worst['total']}, miss {worst['miss']} (on steps "
+          f"{miss_steps}), dt {worst['dt']:.3g}, dn {worst['dn']:.3g}, dp "
+          f"{worst['dp']:.3g}; one-step |dv| median {np.median(dvs):.3g}, "
+          f"max {dvs.max():.3g}, steps > 5: {int((dvs > 5.0).sum())}; "
+          f"ends slot-1 {slot1}, capsule-terrain {cterr}; warm_hit_frac "
+          f"min {min(hit):.4f}", flush=True)
+
+
+def cold_bridge(n_bodies, steps=300, sample=30):
+    """scripts/cold_bridge.py's row: the cold 20-sweep config (warm
+    starting and fused_iso off, bp_every 1) on stress_scene(n_bodies),
+    max penetration at every ``sample``-th step from step 150 on."""
+    import jax
+    from mgf_tpu.scenes import stress_scene
+    from mgf_tpu.world import step
+    w, cfg = stress_scene(n_bodies)
+    cfg = cfg._replace(warm_start=False, fused_iso=False,
+                       warm_match="search", adapt_schedule=None,
+                       solver_iters=20, solver_inner=1, two_phase=True,
+                       bp_every=1)
+    w = w._replace(warm=None, bp=None)
+    f = jax.jit(functools.partial(step, cfg=cfg))
+    pens = []
+    for s in range(steps):
+        w, m = f(w)
+        if (s + 1) % sample == 0 and s + 1 >= 150:
+            pens.append(float(m["max_penetration"]))
+    print(f"mgf_tpu cold_bridge.py row, stress_scene({n_bodies}), 20 "
+          f"two-phase sweeps, {steps} steps on {jax.devices()[0].platform}: "
+          f"max penetration at steps {list(range(150, steps + 1, sample))} "
+          f"{[round(p, 4) for p in pens]}, range {min(pens):.4f}-"
+          f"{max(pens):.4f} (oracle f64 cold-GS at 2k: 0.073-0.081); "
+          f"contacts {int(m['num_contacts'])}", flush=True)
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from mgf_tpu import bounds as jbounds  # noqa: E402
@@ -209,16 +210,19 @@ def _caps(a, d, r):
 
 
 def test_capsule_sphere_contacts_match_jax():
+    """Against mgf_tpu's routines compiled (``jax.jit``), as its step runs
+    them: the port's ``intersect_capsule`` fuses each multiply-add as XLA
+    does (see collision._fma)."""
     a1, d1, r1, a2, _, r2, v = _capsule_pairs(21)
     cj, ct = _caps(a1, d1, r1)
     sj = jgeom.Sphere(c=_jv(a2), r=_ja(r2))
     st = tgeom.Sphere(c=_tv(a2), r=_ta(r2))
-    _assert_contacts(jcol.contact_capsule_moving_sphere(cj, sj, _jv(v)),
-                     tcol.contact_capsule_moving_sphere(ct, st, _tv(v)),
-                     v, 2000)
-    _assert_contacts(jcol.contact_sphere_moving_capsule(sj, cj, _jv(v)),
-                     tcol.contact_sphere_moving_capsule(st, ct, _tv(v)),
-                     v, 2000)
+    _assert_contacts(
+        jax.jit(jcol.contact_capsule_moving_sphere)(cj, sj, _jv(v)),
+        tcol.contact_capsule_moving_sphere(ct, st, _tv(v)), v, 2000)
+    _assert_contacts(
+        jax.jit(jcol.contact_sphere_moving_capsule)(sj, cj, _jv(v)),
+        tcol.contact_sphere_moving_capsule(st, ct, _tv(v)), v, 2000)
 
 
 @pytest.mark.parametrize("ends", [False, True])
@@ -386,12 +390,14 @@ def _tri_capsule_batch():
 
 
 def test_triangle_capsule_contacts_match_jax():
+    """Against the compiled mgf_tpu routine, as
+    test_capsule_sphere_contacts_match_jax."""
     tri, a, d, r, v = _tri_capsule_batch()
     assert a.shape[0] >= 4096
     tj = jgeom.Triangle(*(_jv(tri[:, k]) for k in range(3)))
     tt = tgeom.Triangle(*(_tv(tri[:, k]) for k in range(3)))
     cj, ct = _caps(a, d, r)
-    oj = jcol.contact_triangle_moving_capsule(tj, cj, _jv(v))
+    oj = jax.jit(jcol.contact_triangle_moving_capsule)(tj, cj, _jv(v))
     ot = tcol.contact_triangle_moving_capsule(tt, ct, _tv(v))
     _assert_contacts(oj, ot, v, 3000)
     valid, t = _np(ot.valid), _np(ot.t)

@@ -13,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from mgf_tpu import collision as jcol  # noqa: E402
@@ -84,6 +85,9 @@ def test_sphere_moving_sphere_random_batch():
 
 
 def test_triangle_moving_sphere_random_batch():
+    """Against mgf_tpu's routine compiled (``jax.jit``), as its step runs
+    it: the edge tests' ``intersect_capsule`` fuses each multiply-add as
+    XLA does (see collision._fma)."""
     rng = np.random.default_rng(1)
     a = _f32(rng, N, 3, scale=2.0)
     b = a + _f32(rng, N, 3, scale=2.0)
@@ -92,13 +96,41 @@ def test_triangle_moving_sphere_random_batch():
     s = (centroid + _f32(rng, N, 3, scale=1.0)).astype(np.float32)
     r = rng.uniform(0.2, 1.0, N).astype(np.float32)
     v = _f32(rng, N, 3, scale=1.5)
-    cj = jcol.contact_triangle_moving_sphere(
+    cj = jax.jit(jcol.contact_triangle_moving_sphere)(
         jgeom.Triangle(_jv(a), _jv(b), _jv(c)),
         jgeom.Sphere(c=_jv(s), r=jnp.asarray(r)), _jv(v))
     ct = tcol.contact_triangle_moving_sphere(
         tgeom.Triangle(_tv(a), _tv(b), _tv(c)),
         tgeom.Sphere(c=_tv(s), r=torch.as_tensor(r)), _tv(v))
     _assert_contacts(cj, ct)
+
+
+def test_intersect_capsule_long_edge_matches_compiled():
+    """Spheres falling onto the demo box floor's 28-unit diagonal edge: the
+    edge quadratic cancels ~2e5-sized terms, so float32 t moves in steps of
+    ~2e-4 with the rounding order.  The port fuses the multiply-adds as
+    mgf_tpu's compiled routine does: t within 1e-6 of it on every hit lane
+    (evaluated op by op, the two differ by up to 4.4e-3 on these lanes)."""
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-9.0, 9.0, N)
+    pos = np.stack([x, -9.5 + rng.uniform(-0.1, 0.1, N),
+                    -x + rng.uniform(-1e-3, 1e-3, N)], -1).astype(np.float32)
+    d = np.stack([rng.uniform(-0.01, 0.01, N), -rng.uniform(0.05, 0.3, N),
+                  rng.uniform(-0.01, 0.01, N)], -1).astype(np.float32)
+    ca = np.broadcast_to(np.float32([-10, -10, 10]), (N, 3))
+    cd = np.broadcast_to(np.float32([20, 0, -20]), (N, 3))
+    r = rng.uniform(0.3, 0.6, N).astype(np.float32)
+    ij = jax.jit(lambda p_, d_, a_, c_, r_: jcol.intersect_capsule(
+        p_, d_, jnp.inf, jgeom.Capsule(a_, c_, r_)))(
+        _jv(pos), _jv(d), _jv(ca), _jv(cd), jnp.asarray(r))
+    it = tcol.intersect_capsule(_tv(pos), _tv(d), float("inf"),
+                                tgeom.Capsule(_tv(ca), _tv(cd),
+                                              torch.as_tensor(r)))
+    hit = _np(ij.hit)
+    np.testing.assert_array_equal(hit, _np(it.hit))
+    assert hit.sum() > N // 2
+    np.testing.assert_allclose(_np(it.t)[hit], _np(ij.t)[hit], atol=1e-6,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("slots", [1, 2])
