@@ -34,7 +34,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    and 128 are [21]'s and [26]'s yardsticks
    (every kernel's count is set to 0 before each path, [4], [7], [8],
    [11], [13], [15]-[17], [19]-[25] and [29]-[32], and in every rank of
-   [26]-[28], and read after it; the kernels line sums them);
+   [26]-[28], and read after it; [33]'s process reports its own; the
+   kernels line sums them);
 5. kernel path against plain path end to end: an 8,000-body pile stepped
    40 steps on the card, copied to the CPU, then one more step on each;
 6. K2 against its plain version at P = 900,000 pairs (the cold pile's 9
@@ -119,12 +120,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
 18. the terrain step on the card against the CPU: terrain_scene(2_000)
     after 100 card steps (the rain on the heightfield), one more step on
     each: equal contact counts per class, v within 1e-5, omega within 1e-4;
-19. GJK/EPA at BASELINE.json config 4 (bench.py's bench_gjk_batch): 8,192
-    random OBB pairs (numpy seed 0, normalised random quaternions, centres
-    U(-1.5, 1.5) with the second box shifted by +1, half extents
-    U(0.5, 1.0)) through ``gjk.contact_convex_convex_ex`` and
-    ``gjk.separation`` on the card, held against an f64 15-axis SAT oracle
-    on every pair clear of its 2e-3 margin with tests/test_gjk_property.py's
+19. GJK/EPA at BASELINE.json config 4 (bench.py's bench_gjk_batch, drawn
+    by bench_torch.bench_obb_arrays): 8,192 random OBB pairs (numpy seed
+    0, normalised random quaternions, centres U(-1.5, 1.5) with the second
+    box shifted by +1, half extents U(0.5, 1.0)) through
+    ``gjk.contact_convex_convex_ex`` and ``gjk.separation`` on the card,
+    held against an f64 15-axis SAT oracle on every pair clear of its 2e-3
+    margin with tests/test_gjk_property.py's
     checks: decision errors, EPA depth errors (worst, and how many pass
     0.02), the worst distance short of the SAT bound (limit 0.01) and the
     separated pairs ``separation`` reports touching.  mgf_tpu itself, run on
@@ -142,10 +144,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
     step 128 is taller than bench's settled one, and each axis' modulus
     must exceed the occupied span, bench.py:254-261), overflow 0; 16,384
     downward rays made as bench.py's bench_raytrace makes them (numpy seed
-    3) through ``raytrace_bodies_grid`` and the chunked dense
-    ``raytrace_bodies``: every ray's hit equal, t within 1e-4 and body
-    index equal where hit (0 mismatches); ``raytrace_mesh_grid`` against
-    ``raytrace_mesh`` with 4,096 downward rays over terrain_scene()'s
+    3, bench_torch.bench_rays) through ``raytrace_bodies_grid`` and the
+    chunked dense ``raytrace_bodies``: every ray's hit equal, t within 1e-4
+    and body index equal where hit (0 mismatches); ``raytrace_mesh_grid``
+    against ``raytrace_mesh`` with 4,096 downward rays over terrain_scene()'s
     10,368-face heightfield (face grid cell 4.0, dim 64, cap 16): hit equal,
     t within 1e-4; ``query_aabb`` on one box against a numpy recount; grid
     and dense rays/s (median of 5 calls), the most DDA iterations any ray
@@ -264,7 +266,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
     mgf_tpu's figures where it does not (dt, dn; ``MIXED_GATES``), and
     capsule-terrain contacts > 0 (the oracle finds no ends slot-1 contact
     on this pile, in either package); no kernel launch;
-33. a JSON line of per-kernel results, then the result line.
+33. ``python3 bench_torch.py --quick`` as a process of its own (the
+    port's bench: stress_scene(10_000) through 1,600 steps of warm-up, the
+    fastest of 3 windows of 128 steps in chunks of 64, then 2 x bp_every
+    single steps): exit 0, broadphase overflow 0, drift excess 0, max
+    penetration < 0.5, finite steps/s and penetration, and K1's launches
+    between 2 and 4 per step (the 2x6 and the 4x4 schedule);
+34. the smoke's wall time, a JSON line of per-kernel results, then the
+    result line.
 
 Needs a CUDA card; it exits non-zero without one, and imports no JAX.
 """
@@ -281,6 +290,11 @@ from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
+
+from bench_torch import (
+    bench_obb_arrays, bench_rays, card_line, escaped_bodies, launch_counters,
+    obb_pairs,
+)
 
 TOL = dict(atol=2e-4, rtol=1e-4)
 N_MAIN = 100_000      # the flagship pile
@@ -344,23 +358,15 @@ def sweep_bound(R, N, inner, K=None):
     return bound(n_bytes, n_ops)
 
 
-def _launch_counters():
-    """(kernel, module, attribute) of each kernel's launch count."""
-    from mgf_tpu_torch.ops import narrowphase, sequential_solve, solver_sweep
-    return (("K1", solver_sweep, "LAUNCHES"), ("K2", narrowphase, "LAUNCHES"),
-            ("K3", solver_sweep, "BLOCKMAJOR_LAUNCHES"),
-            ("K4", sequential_solve, "LAUNCHES"))
-
-
 def _zero_counts():
     torch.cuda.synchronize()
-    for _, mod, attr in _launch_counters():
+    for _, mod, attr in launch_counters():
         setattr(mod, attr, 0)
 
 
 def _counts():
     torch.cuda.synchronize()
-    return {k: getattr(mod, attr) for k, mod, attr in _launch_counters()}
+    return {k: getattr(mod, attr) for k, mod, attr in launch_counters()}
 
 
 def check(cond, msg):
@@ -796,15 +802,6 @@ def phase_k3(ss, dev):
     return out
 
 
-def _escaped(world, floor=-1.0):
-    """Bodies below y = ``floor`` or outside the scene's walls (the
-    terrain's x/z extent)."""
-    b, t = world.bodies, world.terrain
-    wall = max(float(c.abs().max()) for v in t for c in (v.x, v.z))
-    out = (b.x.y < floor) | (b.x.x.abs() > wall) | (b.x.z.abs() > wall)
-    return int(out.sum())
-
-
 def phase_mixed_path(dev):
     from mgf_tpu_torch.driver import AdaptiveChunkStepper
     from mgf_tpu_torch.scenes import stress_scene
@@ -823,7 +820,7 @@ def phase_mixed_path(dev):
     contacts = int(last["num_contacts"])
     pen = float(last["max_penetration"])
     hit = float(last["warm_hit_frac"])
-    escaped = _escaped(world)
+    escaped = escaped_bodies(world)
     print(f"[11] mixed path stress_scene({N_MAIN}, mixed=True) ({n_sph} "
           f"spheres, {n_caps} capsules) {steps} steps, chunk {chunk}: "
           f"{sps_late:.2f} steps/s (steps 33-{steps}; "
@@ -1084,7 +1081,7 @@ def phase_flat_demo(dev, solver):
     landing, settling = max(overflow[:200]), max(overflow[200:])
     contacts = int(last["num_contacts"])
     pen = float(last["max_penetration"])
-    out = _escaped(world, floor=-10.0)
+    out = escaped_bodies(world, floor=-10.0)
     sps = 4 * chunk / sum(chunk_s[-4:])
     want_k4 = steps if solver == "sequential" else 0
     print(f"{tag} demo balls_scene(11, solver={solver!r}, friction_mode="
@@ -1266,37 +1263,6 @@ def sat_depth(c1, q1, e1, c2, q2, e2):
     return depth
 
 
-def bench_obb_arrays(n):
-    """bench.py's bench_gjk_batch pairs (its first argument set, eps 0) as
-    float32 numpy arrays ((c, q, r), (c, q, r)): numpy seed 0, per box 4
-    normal quaternion components (normalised in float32, as qnormalize
-    does), 3 centre components U(-1.5, 1.5) + shift and 3 half extents
-    U(0.5, 1.0), the second box shifted by +1."""
-    rng = np.random.default_rng(0)
-    f32 = lambda a: np.asarray(a, np.float32)
-
-    def obb(shift):
-        q = [f32(rng.standard_normal(n)) for _ in range(4)]
-        m2 = q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]
-        inv = np.float32(1.0) / np.sqrt(m2)
-        c = [f32(rng.uniform(-1.5, 1.5, n) + shift) for _ in range(3)]
-        r = [f32(rng.uniform(0.5, 1.0, n)) for _ in range(3)]
-        return (np.stack(c, -1), np.stack([x * inv for x in q], -1),
-                np.stack(r, -1))
-    return obb(0.0), obb(1.0)
-
-
-def _gjk_obb_pairs(n, dev):
-    """The pairs of :func:`bench_obb_arrays` as the port's OBBs."""
-    from mgf_tpu_torch.geom import OBB
-    from mgf_tpu_torch.math3d import Quat, Vec3
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
-    return tuple(OBB(c=Vec3(*(t(c[:, k]) for k in range(3))),
-                     q=Quat(*(t(q[:, k]) for k in range(4))),
-                     r=Vec3(*(t(r[:, k]) for k in range(3))))
-                 for c, q, r in bench_obb_arrays(n))
-
-
 def sat_oracle(out, depth_sat):
     """tests/test_gjk_property.py's checks on every pair clear of the SAT
     margin: decision errors (``valid`` against the SAT overlap), EPA depth
@@ -1380,7 +1346,7 @@ def phase_gjk(dev):
     from mgf_tpu_torch.geom import support_obb
     from mgf_tpu_torch.gjk import contact_convex_convex
     from mgf_tpu_torch.math3d import tree_map
-    a, b = _gjk_obb_pairs(N_GJK, dev)
+    a, b = obb_pairs(bench_obb_arrays(N_GJK), dev)
     _zero_counts()
     out = _gjk_call(a, b)
     counts = _counts()
@@ -1445,22 +1411,6 @@ N_MESH_RAYS = 4096
 RAY_GRID = dict(cell_size=1.25, dims=(128, 16, 128), cap=24)
 
 
-def _bench_rays(state, n, dev):
-    """bench.py's bench_raytrace rays (its first argument set, eps 0):
-    numpy seed 3, x and z U(-side, side) (y drawn and replaced by the top
-    of the pile + 2), directions (U(-0.3, 0.3), -1, U(-0.3, 0.3))."""
-    from mgf_tpu_torch.math3d import Vec3
-    rng = np.random.default_rng(3)
-    side = float(state.x.x.max())
-    top = float(state.x.y.max())
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    px, _, pz = (rng.uniform(-side, side, n) for _ in range(3))
-    p = Vec3(t(px), t(np.full(n, top + 2.0)), t(pz))
-    d = Vec3(t(rng.uniform(-0.3, 0.3, n)), t(np.full(n, -1.0)),
-             t(rng.uniform(-0.3, 0.3, n)))
-    return p, d
-
-
 def _mismatch(grid_out, dense_out, atol=1e-4):
     (ig, bg), (i_d, bd) = grid_out, dense_out
     hg, hd = ig.hit, i_d.hit
@@ -1498,7 +1448,7 @@ def phase_queries(dev, pile):
     _zero_counts()
     grid = build_body_grid(state, **RAY_GRID)
     overflow = int(grid.overflow)
-    p, d = _bench_rays(state, N_RAYS, dev)
+    (p, d), = bench_rays(state, N_RAYS, 1)      # bench.py's first set
     ig, bg, steps = raytrace_bodies_grid_steps(grid, p, d)
     dense = raytrace_bodies(state, p, d)
     mism, hits = _mismatch((ig, bg), dense)
@@ -2685,7 +2635,53 @@ def phase_oracle_mixed(dev, job):
     return counts
 
 
+# [33] bench_torch.py --quick: the headline row (stress_scene(10_000), 1,600
+# steps of warm-up, 3 windows x 128 steps in chunks of 64, then 2 x bp_every
+# single steps), 2,112 steps, each with 2 (the settled 2x6 schedule) to 4
+# (4x4) outer iterations, one K1 launch each
+BENCH_QUICK_STEPS = 64 + 1600 + 3 * 128 + 64
+
+
+def phase_bench_quick():
+    """[33] ``python3 bench_torch.py --quick`` as a process of its own:
+    exit 0, the guards of its secondary dict, its K1 launches."""
+    import os
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "bench_torch.py", "--quick"],
+                         capture_output=True, text=True, env=env,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"bench_torch.py --quick exited "
+          f"{out.returncode}: {out.stderr[-3000:]}")
+    head = json.loads(out.stdout.strip().splitlines()[-1])
+    err = out.stderr.strip().splitlines()
+    sec = json.loads(err[-1])
+    prefix = "launches by row "
+    rows = json.loads(next(x for x in err if x.startswith(prefix))[
+        len(prefix):])
+    counts = {k: sum(r[k] for r in rows.values()) for k in ("K1", "K2", "K3",
+                                                            "K4")}
+    print(f"[33] bench_torch.py --quick: exit 0 in {wall:.1f} s; {head}; "
+          f"{sec}; launches {rows}", flush=True)
+    values = [head["value"], sec["stress_max_penetration"],
+              sec["stress_steps_per_sec_mean3"]]
+    check(all(np.isfinite(v) for v in values), f"bench quick: {values}")
+    check(sec["stress_broadphase_overflow"] == 0,
+          f"bench quick: overflow {sec['stress_broadphase_overflow']}")
+    check(sec["stress_bp_drift_excess"] == 0.0,
+          f"bench quick: drift excess {sec['stress_bp_drift_excess']}")
+    check(sec["stress_max_penetration"] < 0.5,
+          f"bench quick: max penetration {sec['stress_max_penetration']}")
+    check(2 * BENCH_QUICK_STEPS <= counts["K1"] <= 4 * BENCH_QUICK_STEPS,
+          f"bench quick: K1 launches {counts['K1']} for "
+          f"{BENCH_QUICK_STEPS} steps")
+    return counts
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
@@ -2696,13 +2692,9 @@ def main():
     from mgf_tpu_torch.ops import solver_sweep as ss
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
     print(f"[1] device {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
-    print(smi, flush=True)
+    print(card_line(dev), flush=True)
     wall_s = _build.build_all()
     per_src = ", ".join(f"{k} {v:.2f} s"
                         for k, v in sorted(_build.BUILD_SECONDS.items()))
@@ -2755,6 +2747,7 @@ def main():
         paths.append(phase_oracle_sequential(dev))
         paths.append(phase_oracle_flagship(dev, jobs["flagship"]))
         paths.append(phase_oracle_mixed(dev, jobs["mixed"]))
+    paths.append(phase_bench_quick())
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
     def row(name, source, replaces, n, r):
@@ -2765,9 +2758,11 @@ def main():
                 "bound_by": r["bound_by"], "library_ms": None}
 
     # no single PyTorch call computes K1, K2, K3 or K4: library_ms is null.
+    print(f"[34] chip_smoke.py wall time {time.perf_counter() - t_start:.1f}"
+          f" s", flush=True)
     # launches: each kernel's count summed over the paths ([4], [7], [8],
-    # [15], [16], [21]-[25], [29]-[31]; [11], [13], [17], [19], [20], [32]
-    # and the ranks of [26]-[28] launch none).  K1 in
+    # [15], [16], [21]-[25], [29]-[31], [33]; [11], [13], [17], [19], [20],
+    # [32] and the ranks of [26]-[28] launch none).  K1 in
     # gather mode at the main path's settled shape (inner 6); K2 at the
     # cold pile's 900,000 pairs; K3 at block 1024, inner 8; K4 at the full
     # demo's constraint list (ms, plain_ms: the level plain version on the

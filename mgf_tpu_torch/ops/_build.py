@@ -7,9 +7,10 @@ seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o <lib> <source>
 
-The library lands in ``build/mgf_tpu_torch/`` at the repository root, in a
-file named after a hash of the source, so an edited source rebuilds and an
-unchanged one loads the existing library.  :func:`build_all`
+The library lands in ``build/mgf_tpu_torch/`` at the repository root (or in
+the directory given to :func:`set_build_dir`), in a file named after a hash
+of the source, so an edited source rebuilds and an unchanged one loads the
+existing library.  :func:`build_all`
 starts one nvcc per source at once and waits for all of them.  A missing
 nvcc or a failed build raises; nothing falls back.
 """
@@ -49,6 +50,20 @@ def _nvcc() -> str:
         return str(cand)
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
                        "CUDA kernels of mgf_tpu_torch cannot be built")
+
+
+def build_dir() -> Path:
+    """The directory the libraries are built into and loaded from."""
+    return _BUILD_DIR
+
+
+def set_build_dir(path) -> None:
+    """Build into and load from ``path`` from now on (``bench_torch.py
+    --cold-cache`` gives a fresh temporary directory, so that the first
+    launch of each kernel includes nvcc).  Libraries this process has
+    loaded already stay loaded."""
+    global _BUILD_DIR
+    _BUILD_DIR = Path(path)
 
 
 def _library_path(name: str) -> Path:

@@ -1,5 +1,6 @@
-"""mgf_tpu_torch, chip_smoke.py, scripts/torch_profile_step.py,
-scripts/k4_phases.py and the torch demos (demos/balls_torch.py,
+"""mgf_tpu_torch, chip_smoke.py, bench_torch.py,
+scripts/torch_profile_step.py, scripts/k4_phases.py,
+scripts/torch_mixed_settle.py and the torch demos (demos/balls_torch.py,
 demos/capsules_torch.py) import neither jax nor mgf_tpu (the machine with
 the card has no JAX), and importing them initialises no CUDA context and
 (mgf_tpu_torch.parallel) starts no process group.
@@ -81,6 +82,14 @@ def _probe_script(module, where):
 
 def test_chip_smoke_imports_no_jax():
     _probe_script("chip_smoke", "")
+
+
+def test_bench_torch_imports_no_jax():
+    _probe_script("bench_torch", "")
+
+
+def test_mixed_settle_script_imports_no_jax():
+    _probe_script("torch_mixed_settle", "scripts")
 
 
 def test_profile_script_imports_no_jax():
