@@ -40,7 +40,13 @@ Departures from bench.py:
 * ``--cold-cache`` builds the CUDA kernels into a fresh temporary
   directory, so the ``*_compile_s`` of the first row that launches each
   kernel includes nvcc (bench.py's flag points JAX's compilation cache at
-  a fresh directory).
+  a fresh directory);
+* the chunked rows (the mixed pile and the headline) replay CUDA graphs
+  of the step on the card, as bench.py's run its compiled ``lax.scan``;
+  two keys bench.py does not have: ``stress_captured`` (the headline's
+  windows replayed graphs) and ``stress_eager_steps_per_sec`` (one
+  128-step window of the same settled pile stepped eagerly,
+  ``capture=False``, after the captured windows).
 
 ``--device cpu`` runs every row on the CPU, where each kernel's plain
 PyTorch version runs in its place; the default is the card, and without
@@ -71,6 +77,8 @@ SCHEDULE = {
     "mixed": (400, 64, 2, 16),
     "stress": (1600, 128, 3, 64),
 }
+# the headline's eager window (capture=False) after its captured ones
+STRESS_EAGER_STEPS = 128
 # bench.py's sizes of the other rows
 N_TERRAIN = 10_000
 N_GJK_PAIRS = 8192
@@ -95,7 +103,7 @@ def _check_finite(y):
         raise RuntimeError("NaN in the bodies' positions")
 
 
-def time_steps(world, cfg, warmup, iters, windows=1, chunk=0):
+def time_steps(world, cfg, warmup, iters, windows=1, chunk=0, eager_iters=0):
     """Time ``windows`` back-to-back windows of ``iters`` steps after
     ``warmup`` steps, and return (the fastest window's steps/s, the first
     call's seconds, the world, the last step's metrics).
@@ -107,24 +115,34 @@ def time_steps(world, cfg, warmup, iters, windows=1, chunk=0):
     ``driver.make_chunk_step`` (light interior metrics, full metrics on
     each chunk's last step), with the solver schedule chosen on the host by
     ``driver.AdaptiveChunkStepper`` when ``cfg.adapt_schedule`` is set; the
-    nonces are pre-staged on the device.  The first call's seconds include
+    nonces are pre-staged on the device, and each chunk copies its own
+    into the stepper's static nonce buffer (a copy on the card).  On the
+    card those chunks replay CUDA graphs of the step
+    (``graphs.CapturedStep``); ``time_steps.last_captured`` says whether
+    they did.  ``eager_iters`` > 0 then times one more window of that many
+    steps from the same world on the same stepper switched to
+    ``capture=False`` (the Python loop over ``step``), kept in
+    ``time_steps.last_eager_rate``.  The first call's seconds include
     loading (or, without a built library, compiling) the kernels it
-    launches.  Each window ends in a device sync and a host read of the
-    heights; the window rates are kept in ``time_steps.last_rates``."""
+    launches and capturing the graphs it meets.  Each window ends in a
+    device sync and a host read of the heights; the window rates are kept
+    in ``time_steps.last_rates``."""
     from mgf_tpu_torch.world import step
 
     dev = world.bodies.x.x.device
     if chunk:
-        from mgf_tpu_torch.driver import AdaptiveChunkStepper, make_chunk_step
-        if cfg.adapt_schedule is not None:
-            fc = AdaptiveChunkStepper(cfg, chunk=chunk, light=True).step_chunk
-        else:
-            fc = make_chunk_step(cfg, light=True)
         n_warm, n_chunks = -(-warmup // chunk), -(-iters // chunk)
+        n_eager = -(-eager_iters // chunk)
         scales = [torch.tensor([1.0 + 1e-6 * ((i * chunk + j) % 64 + 1)
                                 for j in range(chunk)], dtype=torch.float32,
                                device=dev)
-                  for i in range(max(n_warm, n_chunks, 1))]
+                  for i in range(max(n_warm, n_chunks, n_eager, 1))]
+        from mgf_tpu_torch.driver import AdaptiveChunkStepper, make_chunk_step
+        if cfg.adapt_schedule is not None:
+            st = AdaptiveChunkStepper(cfg, chunk=chunk, light=True)
+            run, fc = st.run_chunk, st.step_chunk
+        else:
+            run = fc = make_chunk_step(cfg, light=True)
         t0 = time.perf_counter()
         world, m = fc(world, scales[0])
         _barrier(dev)
@@ -142,6 +160,18 @@ def time_steps(world, cfg, warmup, iters, windows=1, chunk=0):
             _check_finite(y)
             rates.append(n_chunks * chunk / dt)
         time_steps.last_rates = rates
+        time_steps.last_captured = bool(run.captured is not None
+                                        and run.captured.graphs)
+        if n_eager:
+            # the same stepper, schedule state and world, stepped eagerly
+            run.capture = False
+            w = world
+            t0 = time.perf_counter()
+            for i in range(n_eager):
+                w, _ = fc(w, scales[i])
+            _check_finite(_host_y(w))
+            time_steps.last_eager_rate = (n_eager * chunk
+                                          / (time.perf_counter() - t0))
         return max(rates), compile_s, world, {k: v[-1] for k, v in m.items()}
 
     def stepped(world, scale):
@@ -470,8 +500,11 @@ def run(args, dev):
         # bench.py (the 12-layer pile goes on consolidating long past the
         # nominal settle), chunks of 64 with the host-chosen schedule
         w, cfg = stress_scene(n, mixed=args.mixed, device=dev)
-        sps, comp, world, m = time_steps(w, cfg, *SCHEDULE["stress"])
+        sps, comp, world, m = time_steps(w, cfg, *SCHEDULE["stress"],
+                                         eager_iters=STRESS_EAGER_STEPS)
         secondary["stress_chunk"] = SCHEDULE["stress"][3]
+        secondary["stress_captured"] = time_steps.last_captured
+        secondary["stress_eager_steps_per_sec"] = time_steps.last_eager_rate
         secondary["stress_host_adaptive"] = cfg.adapt_schedule is not None
         secondary["stress_light_interior_metrics"] = True
         secondary["stress_steps_per_sec_mean3"] = float(

@@ -5,8 +5,9 @@ heightfield terrain scene, GJK/EPA and the world queries, the broadphase
 variants, the refit cache, the stage probes, the capacity world with its
 surgery and checkpoint, the torch demos and the entry point, the
 multi-device paths as ranks sharing the card, hold the card's steps
-contact for contact against the f64 parity oracle, and check what comes
-out.
+contact for contact against the f64 parity oracle, replay the flagship,
+cold-pile and mixed-pile steps from CUDA graphs against their eager runs,
+and check what comes out.
 
     python3 chip_smoke.py
 
@@ -28,14 +29,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
    spins before each block so that the launches are queued when it starts
    and the time is the device's, not the host's pace of issuing them;
 4. the main path: stress_scene(100_000) stepped 128 steps by
-   AdaptiveChunkStepper(chunk=16, light=True), with the physics guards
+   AdaptiveChunkStepper(chunk=16, light=True) (replayed from CUDA graphs,
+   the chunk driver's default on the card, as in every phase that steps
+   through it: [4], [7], [8], [11], [21], [24], [33], [35]; the capsule,
+   terrain and flat-solver paths step eagerly), with the physics guards
    checked and K1's launch count held to the solver's outer iterations
    (one gather-mode launch per outer iteration); its contacts at steps 64
    and 128 are [21]'s and [26]'s yardsticks
    (every kernel's count is set to 0 before each path, [4], [7], [8],
-   [11], [13], [15]-[17], [19]-[25] and [29]-[32], and in every rank of
-   [26]-[28], and read after it; [33]'s process reports its own; the
-   kernels line sums them);
+   [11], [13], [15]-[17], [19]-[25], [29]-[32] and each run of [35], and
+   in every rank of [26]-[28], and read after it; [33]'s process reports
+   its own; the kernels line sums them; a replayed graph counts the
+   launches its capture recorded);
 5. kernel path against plain path end to end: an 8,000-body pile stepped
    40 steps on the card, copied to the CPU, then one more step on each;
 6. K2 against its plain version at P = 900,000 pairs (the cold pile's 9
@@ -240,7 +245,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
     gates, 0 misses on every step, dt <= 1e-4, dn <= 2e-7, dp <= 2e-6,
     median one-step |dv| <= 1e-3, at most 15 steps with |dv| > 5; K2's
     launches equal to the steps.  The oracle's runs of [29], [31] and [32]
-    go to three worker processes on the CPU at the start of [29];
+    go to three worker processes on the CPU at the smoke's start, after
+    [2], so that they overlap [3]-[28];
 30. the reference-exact path free-running beside the oracle:
     balls_scene(3) on the sequential solver (K4) with the raw-lambda
     friction and all-pairs candidates, 160 steps; worst |dy| <= 5e-3
@@ -272,8 +278,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
     single steps): exit 0, broadphase overflow 0, drift excess 0, max
     penetration < 0.5, finite steps/s and penetration, and K1's launches
     between 2 and 4 per step (the 2x6 and the 4x4 schedule);
-34. the smoke's wall time, a JSON line of per-kernel results, then the
-    result line.
+35. (printed before [34]) the compiled chunk: the flagship (K1, 128
+    steps), the cold pile (K2, 64 steps) and the mixed pile (64 steps) at
+    100k bodies, each from a state of its own stepped eager twice
+    (``capture=False``) and once replayed from CUDA graphs
+    (``graphs.CapturedStep``), chunks of 16 with light metrics as in [4],
+    [7] and [11]: if the two eager runs are bit-equal, the captured run
+    must equal them bit for bit (x, v, omega and every metric of every
+    step), else stay within twice their gap (x, v, omega, and the contacts
+    of each step); the case that held is printed.  On the captured run the
+    guards of [4] / [7] / [11] (finite state, overflow, drift excess 0,
+    max penetration < 0.5, contacts, 0 escaped bodies) and K1's launches
+    equal to the outer iterations, K2's to the steps, on every run.  Then
+    steps/s captured and eager (after the first chunks), 4 more steps of
+    each (a shorter chunk on the same stepper and graphs) traced by
+    torch.profiler (the device alone): device
+    operations, device ms and graph launches per step and the device's
+    busy share of the timed ms per step; capture seconds, the graphs'
+    reserved memory, and nvidia-smi's name and power limit;
+34. the smoke's wall time and each phase's seconds, a JSON line of
+    per-kernel results, then the result line.
 
 Needs a CUDA card; it exits non-zero without one, and imports no JAX.
 """
@@ -664,15 +688,21 @@ def _run_chunks(run, world, n_chunks, chunk):
     return world, chunk_s, rebuilds, overflow, drift, last
 
 
-def phase_cold_path(dev):
-    from mgf_tpu_torch.driver import make_chunk_step
+def _cold_scene(dev):
+    """The cold reference-schedule pile of [7] and [35]: stress_scene on
+    the generic branch, no warm start, 20 two-phase sweeps, K2."""
     from mgf_tpu_torch.scenes import stress_scene
     world, cfg = stress_scene(N_MAIN, device=dev)
     cfg = cfg._replace(warm_start=False, fused_iso=False,
                        warm_match="search", adapt_schedule=None,
                        solver_iters=20, solver_inner=1, two_phase=True,
                        pallas_narrowphase=True)
-    world = world._replace(warm=None)
+    return world._replace(warm=None), cfg
+
+
+def phase_cold_path(dev):
+    from mgf_tpu_torch.driver import make_chunk_step
+    world, cfg = _cold_scene(dev)
     chunk, n_chunks = 16, 4
     _zero_counts()
     world, chunk_s, rebuilds, overflow, drift, last = _run_chunks(
@@ -1302,9 +1332,9 @@ def _gjk_call(a, b):
 def _profile_ops(fn):
     """(device operations, device ms, the three kernels with the most device
     time as "name share%") of one call of ``fn``, from torch.profiler's
-    CUDA events."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    CUDA events (the device alone is traced: the host's events would cost
+    ~0.1 ms each to collect and are not read)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         fn()
@@ -2680,6 +2710,186 @@ def phase_bench_quick():
     return counts
 
 
+# [35] the three paths the port replays from CUDA graphs, each stepped
+# eager twice and captured once from one state of its own: (steps, chunk)
+CAPTURED_PATHS = {"flagship": (128, 16), "cold": (64, 16), "mixed": (64, 16)}
+# steps of the window traced after each run (the profiler's events cost
+# ~0.1 ms each to collect: a 16-step mixed chunk has 235,000)
+WINDOW_STEPS = 4
+
+
+def _captured_scene(name, dev):
+    from mgf_tpu_torch.scenes import stress_scene
+    if name == "cold":
+        return _cold_scene(dev)
+    return stress_scene(N_MAIN, mixed=name == "mixed", device=dev)
+
+
+def _clone_world(world):
+    from mgf_tpu_torch.math3d import tree_map
+    c = lambda t: tree_map(torch.clone, t)
+    return world._replace(bodies=c(world.bodies), bp=c(world.bp),
+                          warm=c(world.warm))
+
+
+def _drive(cfg, world, steps, chunk, capture):
+    """Step a clone of ``world`` ``steps`` steps through the chunk driver
+    as [4] / [7] / [11] do, eager (``capture=False``) or from CUDA graphs
+    (None, the default on the card); the per-step metrics, the chunks'
+    wall seconds, the launches and the solver's outer iterations."""
+    from mgf_tpu_torch.driver import AdaptiveChunkStepper, make_chunk_step
+    ones = torch.ones((chunk,), dtype=torch.float32,
+                      device=world.bodies.x.x.device)
+    if cfg.adapt_schedule is not None:
+        st = AdaptiveChunkStepper(cfg, chunk=chunk, light=True,
+                                  capture=capture)
+        run, f = st.run_chunk, st.step_chunk
+        it2 = int(cfg.adapt_schedule[1])
+    else:
+        st, run = None, make_chunk_step(cfg, light=True, capture=capture)
+        f = run
+    world = _clone_world(world)
+    chunk_s, ms, outer = [], [], 0
+    _zero_counts()
+    for _ in range(steps // chunk):
+        iters = it2 if st is not None and st.hot_on else cfg.solver_iters
+        t0 = time.perf_counter()
+        world, m = f(world, ones)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+        outer += chunk * iters
+        ms.append(m)
+    return dict(world=world, counts=_counts(), outer=outer, chunk_s=chunk_s,
+                metrics={k: torch.cat([m[k] for m in ms]) for k in ms[0]},
+                run=run, window=lambda w: f(w, ones[:WINDOW_STEPS]))
+
+
+def _state_rows(world):
+    b = world.bodies
+    return {"x": torch.stack(list(b.x)), "v": torch.stack(list(b.v)),
+            "omega": torch.stack(list(b.omega))}
+
+
+def _bit_equal(a, b):
+    sa, sb = _state_rows(a["world"]), _state_rows(b["world"])
+    return (all(torch.equal(sa[k], sb[k]) for k in sa)
+            and all(torch.equal(a["metrics"][k], b["metrics"][k])
+                    for k in a["metrics"]))
+
+
+def _gaps(a, b):
+    """Max |a - b| of x, v, omega, and of the per-step contact counts."""
+    sa, sb = _state_rows(a["world"]), _state_rows(b["world"])
+    out = {k: float((sa[k] - sb[k]).abs().max()) for k in sa}
+    ca, cb = (r["metrics"]["num_contacts"].long() for r in (a, b))
+    out["contacts"] = int((ca - cb).abs().max())
+    return out
+
+
+def _window(r):
+    """``WINDOW_STEPS`` more steps of a run (a shorter chunk on the same
+    stepper and graphs) under torch.profiler: device operations and device
+    ms per step, graph launches per step, the top kernels."""
+    cap = r["run"].captured
+    replays = cap.replays if cap is not None else 0
+    ops, dev_ms, top = _profile_ops(lambda: r["window"](r["world"]))
+    replays = (cap.replays if cap is not None else 0) - replays
+    n = WINDOW_STEPS
+    return ops / n, dev_ms / n, replays / n, top
+
+
+def phase_captured(dev):
+    """[35] the flagship (K1), the cold pile (K2) and the mixed pile at
+    100k bodies, each stepped eager twice and once from CUDA graphs
+    (``graphs.CapturedStep``) from one state of its own: captured against
+    eager equality, the guards of [4] / [7] / [11] on the captured run,
+    K1 launches equal to the outer iterations and K2's to the steps, then
+    steps/s, device operations and graph launches per step, busy share,
+    capture seconds and graph memory."""
+    total = {k: 0 for k in ("K1", "K2", "K3", "K4")}
+    smi = card_line(dev)
+    for name, (steps, chunk) in CAPTURED_PATHS.items():
+        t_path = time.perf_counter()
+        world, cfg = _captured_scene(name, dev)
+        runs = {}
+        for tag, capture in (("eager", False), ("eager2", False),
+                             ("captured", None)):
+            torch.cuda.empty_cache()
+            runs[tag] = _drive(cfg, world, steps, chunk, capture)
+        a, b, c = runs["eager"], runs["eager2"], runs["captured"]
+        cap = c["run"].captured
+        check(cap is not None and cap.graphs and cap.replays > 0,
+              f"[35] {name}: the captured run replayed no graph")
+        if _bit_equal(a, b):
+            case = "eager runs bit-equal; captured bit-equal to them"
+            check(_bit_equal(a, c), f"[35] {name}: captured differs from "
+                  f"eager {_gaps(a, c)}")
+        else:
+            gap, cgap = _gaps(a, b), _gaps(a, c)
+            case = (f"eager runs differ by {gap}; captured within twice "
+                    f"that: {cgap}")
+            check(all(cgap[k] <= 2 * gap[k] for k in gap),
+                  f"[35] {name}: captured {cgap} past twice the eager gap "
+                  f"{gap}")
+        w, m = c["world"], c["metrics"]
+        overflow = int(m["broadphase_overflow"].max())
+        drift = float(m["broadphase_cache_drift_excess"].max())
+        pen = float(m["max_penetration"][-1])
+        contacts = int(m["num_contacts"][-1])
+        escaped = escaped_bodies(w)
+        late = 2 if name != "cold" else 1
+        sps = {t: chunk * (len(r["chunk_s"]) - late)
+               / sum(r["chunk_s"][late:]) for t, r in runs.items()}
+        counts = {t: r["counts"] for t, r in runs.items()}
+        _zero_counts()
+        prof = {t: _window(runs[t]) for t in ("eager2", "captured")}
+        window_counts = _counts()
+        ms_step = {t: 1e3 / sps[t] for t in prof}
+        busy = {t: 100.0 * prof[t][1] / ms_step[t] for t in prof}
+        for k in total:
+            total[k] += window_counts[k] + sum(r["counts"][k]
+                                               for r in runs.values())
+        scene = f"{N_MAIN}, mixed=True" if name == "mixed" else N_MAIN
+        print(f"[35] {name} stress_scene({scene}) {steps} steps in chunks "
+              f"of {chunk}, eager twice and captured from one state: {case}; steps/s (chunks {late + 1}-"
+              f"{steps // chunk}) captured {sps['captured']:.2f}, eager "
+              f"{sps['eager']:.2f} / {sps['eager2']:.2f}; {WINDOW_STEPS} "
+              f"more steps traced: device operations per step captured "
+              f"{prof['captured'][0]:.1f} / eager {prof['eager2'][0]:.1f}, "
+              f"graph launches per step {prof['captured'][2]:.2f}, device ms "
+              f"per step {prof['captured'][1]:.3f} / {prof['eager2'][1]:.3f}, "
+              f"busy {busy['captured']:.1f} % / {busy['eager2']:.1f} % (of "
+              f"the timed chunks' ms per step), top kernels captured "
+              f"{prof['captured'][3]}; capture {cap.capture_seconds:.2f} s "
+              f"for {cap.n_graphs} graphs, graph memory "
+              f"{cap.graph_bytes / 2**20:.1f} MiB reserved; contacts "
+              f"{contacts}, max penetration {pen:.4f}, overflow worst step "
+              f"{overflow}, drift excess {drift}, escaped {escaped}; "
+              f"launches eager {counts['eager']} captured "
+              f"{counts['captured']} (outer iterations {c['outer']}); "
+              f"{time.perf_counter() - t_path:.1f} s; {smi}", flush=True)
+        check(_finite(w), f"[35] {name}: non-finite x, v or omega")
+        limit = MIXED_OVERFLOW_SHARE * N_MAIN if name == "mixed" else 0
+        check(overflow <= limit, f"[35] {name}: overflow {overflow}")
+        check(drift == 0.0, f"[35] {name}: drift excess {drift}")
+        check(contacts > 0, f"[35] {name}: no contacts")
+        check(pen < 0.5, f"[35] {name}: max penetration {pen}")
+        check(escaped == 0, f"[35] {name}: {escaped} bodies escaped")
+        for t, r in runs.items():
+            n = r["counts"]
+            if name == "flagship":
+                ok = n["K1"] == r["outer"] and n["K2"] == 0
+            elif name == "cold":
+                ok = n["K2"] == steps and n["K1"] == 0
+            else:
+                ok = not any(n.values())
+            check(ok and n["K3"] == n["K4"] == 0,
+                  f"[35] {name} {t}: launches {n} (outer iterations "
+                  f"{r['outer']}, steps {steps})")
+        del runs, a, b, c, cap, w
+    return total
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2700,19 +2910,43 @@ def main():
                         for k, v in sorted(_build.BUILD_SECONDS.items()))
     print(f"[2] kernels built in {wall_s:.2f} s wall, one nvcc per source "
           f"in parallel ({per_src})", flush=True)
+    # the f64 oracle's runs of [29], [31] and [32] start now, in three CPU
+    # workers, so that they overlap the phases before [29]
+    from mgf_tpu_torch import native
+    t0 = time.perf_counter()
+    native.load()
+    native_s = time.perf_counter() - t0
+    with ProcessPoolExecutor(max_workers=3,
+                             mp_context=mp.get_context("spawn")) as pool:
+        jobs = {c: pool.submit(_oracle_job, c) for c in ORACLE_WINDOWS}
+        return _phases(dev, name, t_start, jobs, native_s, ss, nph, seq)
+
+
+def _phases(dev, name, t_start, jobs, native_s, ss, nph, seq):
+    """[3]-[35] and the closing lines; ``jobs`` are the oracle workers'
+    runs, ``native_s`` the seconds the native runtime took to load."""
+    laps = [("1-2", time.perf_counter())]
+
+    def lap(tag):
+        laps.append((tag, time.perf_counter()))
+
     k1 = phase_kernel(ss, dev)
+    lap("3")
     main_counts, pile, pile_cfg, contacts64, contacts128 = phase_main_path(
         dev)
     paths = [main_counts]
     phase_end_to_end(dev)
+    lap("4-5")
     k2 = phase_k2(nph, dev)
     paths.append(phase_cold_path(dev))
     demo, demo_cfg, demo_counts = phase_demo(dev)
     paths.append(demo_counts)
     phase_demo_card_vs_cpu(demo, demo_cfg)
+    lap("6-9")
     k3 = phase_k3(ss, dev)
     paths.append(phase_mixed_path(dev))
     phase_mixed_card_vs_cpu(dev)
+    lap("10-12")
     paths.append(phase_capsules_demo(dev))
     k4 = phase_k4_small(seq, dev)
     seq_demo, seq_cfg, seq_counts = phase_flat_demo(dev,
@@ -2720,34 +2954,39 @@ def main():
     paths.append(seq_counts)
     k4 = phase_k4_demo(seq, k4, seq_demo, seq_cfg)
     paths.append(phase_flat_demo(dev, "parallel")[2])
+    lap("13-16")
     paths.append(phase_terrain(dev))
     phase_terrain_card_vs_cpu(dev)
+    lap("17-18")
     paths.append(phase_gjk(dev))
     paths.append(phase_queries(dev, pile))
+    lap("19-20")
     paths += phase_fat_variants(dev, contacts64)
+    lap("21")
     paths.append(phase_bp_margin(pile, pile_cfg))
     paths.append(phase_probes(pile, pile_cfg, dev))
     paths.append(phase_capacity(pile, pile_cfg, dev))
+    lap("22-24")
     from mgf_tpu_torch import world_to_numpy
     pile_np = world_to_numpy(pile._replace(warm=None, bp=None))
     del pile
     paths.append(phase_demos_entry(dev))
+    lap("25")
     paths.append(phase_spatial_pile(dev, contacts64, contacts128))
     paths.append(phase_spatial_card_vs_cpu(dev))
     paths.append(phase_sharded_dryrun(dev, pile_np, pile_cfg))
-    from mgf_tpu_torch import native
-    t0 = time.perf_counter()
-    native.load()
+    lap("26-28")
     print(f"[29] the native host runtime (csrc/mgf_host.cpp, g++) loaded in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    with ProcessPoolExecutor(max_workers=3,
-                             mp_context=mp.get_context("spawn")) as pool:
-        jobs = {c: pool.submit(_oracle_job, c) for c in ORACLE_WINDOWS}
-        paths.append(phase_oracle_demo(dev, jobs["balls"]))
-        paths.append(phase_oracle_sequential(dev))
-        paths.append(phase_oracle_flagship(dev, jobs["flagship"]))
-        paths.append(phase_oracle_mixed(dev, jobs["mixed"]))
+          f"{native_s:.2f} s (before [3])", flush=True)
+    paths.append(phase_oracle_demo(dev, jobs["balls"]))
+    paths.append(phase_oracle_sequential(dev))
+    paths.append(phase_oracle_flagship(dev, jobs["flagship"]))
+    paths.append(phase_oracle_mixed(dev, jobs["mixed"]))
+    lap("29-32")
     paths.append(phase_bench_quick())
+    lap("33")
+    paths.append(phase_captured(dev))
+    lap("35")
     launches = {k: sum(p[k] for p in paths) for k in paths[0]}
 
     def row(name, source, replaces, n, r):
@@ -2758,11 +2997,14 @@ def main():
                 "bound_by": r["bound_by"], "library_ms": None}
 
     # no single PyTorch call computes K1, K2, K3 or K4: library_ms is null.
+    laps.insert(0, ("", t_start))
+    per_phase = ", ".join(f"[{t}] {t1 - t0:.1f}" for (_, t0), (t, t1)
+                          in zip(laps, laps[1:]))
     print(f"[34] chip_smoke.py wall time {time.perf_counter() - t_start:.1f}"
-          f" s", flush=True)
+          f" s; seconds by phase: {per_phase}", flush=True)
     # launches: each kernel's count summed over the paths ([4], [7], [8],
-    # [15], [16], [21]-[25], [29]-[31], [33]; [11], [13], [17], [19], [20],
-    # [32] and the ranks of [26]-[28] launch none).  K1 in
+    # [15], [16], [21]-[25], [29]-[31], [33], [35]; [11], [13], [17], [19],
+    # [20], [32] and the ranks of [26]-[28] launch none).  K1 in
     # gather mode at the main path's settled shape (inner 6); K2 at the
     # cold pile's 900,000 pairs; K3 at block 1024, inner 8; K4 at the full
     # demo's constraint list (ms, plain_ms: the level plain version on the

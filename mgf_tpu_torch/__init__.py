@@ -23,6 +23,11 @@ the all-gather step, each device of the JAX package's mesh one rank of
 ``torch.distributed``).  ``gjk``, ``queries``, ``utils`` and ``parallel``
 run as plain PyTorch, as the JAX package runs them as plain ``jnp``.
 
+On the card the chunk driver (``driver.make_chunk_step``,
+``AdaptiveChunkStepper``) replays the step from CUDA graphs
+(``graphs.CapturedStep``), the counterpart of the JAX package's compiled
+chunk, on the flagship, the generic sphere branch and the mixed pile.
+
 The scene builders, ``make_world`` and ``SceneBuilder.build`` put their
 tensors on the CUDA card unless the caller names another ``device``.  This
 package imports neither ``jax`` nor ``mgf_tpu``.

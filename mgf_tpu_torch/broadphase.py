@@ -212,16 +212,16 @@ def build_fat_grid(bounds: AABB, cfg: GridConfig, width: int = 8,
     if width == 4:
         rows = torch.stack([centers.x[order], centers.y[order],
                             centers.z[order], idx], dim=-1)
-        empty = [0.0, 0.0, 0.0, -1.0]
     else:
         z = torch.zeros_like(idx)
         rows = torch.stack([centers.x[order], centers.y[order],
                             centers.z[order], r_eff[order], idx, z, z, z],
                            dim=-1)
-        empty = [0.0, 0.0, 0.0, 0.0, -1.0, 0.0, 0.0, 0.0]
-    # one extra sentinel slot takes the rows JAX drops (mode='drop')
-    table = torch.tensor(empty, dtype=torch.float32,
-                         device=sorted_h.device).repeat(ncell * cap + 1, 1)
+    # an empty row is all zeros with index -1 (column 3 of 4, 4 of 8); one
+    # extra sentinel slot takes the rows JAX drops (mode='drop')
+    table = torch.zeros((ncell * cap + 1, width), dtype=torch.float32,
+                        device=sorted_h.device)
+    table[:, 3 if width == 4 else 4].fill_(-1.0)
     slot = sorted_h * cap + torch.clamp(rank, max=cap - 1)
     table[torch.where(ok, slot, ncell * cap).long()] = rows
     table = table[:ncell * cap].reshape(ncell, cap, width)

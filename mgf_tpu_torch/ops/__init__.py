@@ -10,5 +10,7 @@ version beside it (used for CPU tensors) and a launch counter.
   block-major layout of ``scripts/micro_sweep.py::run_blockmajor``.
 
 Sources live in ``csrc/`` and are built by ``_build`` at first use
-(``_build.build_all()`` builds every source at once).
+(``_build.build_all()`` builds every source at once).  Each wrapper counts
+its launches through ``launches.count``, which keeps the counts true when
+a CUDA graph replays the launches (``graphs.CapturedStep``).
 """

@@ -22,7 +22,7 @@ import torch
 
 from mgf_tpu_torch.collision import Contact
 from mgf_tpu_torch.math3d import Vec3
-from mgf_tpu_torch.ops import _build
+from mgf_tpu_torch.ops import _build, launches
 
 # kernel launches made by sphere_contact_pairs in this process (read and
 # reset by callers that must show the main path went through the kernel)
@@ -132,7 +132,6 @@ def sphere_contact_pairs(ga8, gb8) -> Contact:
     ``contact_moving_moving``).  Any P works: the kernel masks the ragged
     edge.  CUDA tensors launch the kernel; CPU tensors run
     :func:`sphere_contact_pairs_reference`."""
-    global LAUNCHES
     _check(ga8, gb8)
     if ga8.device.type == "cpu":
         return sphere_contact_pairs_reference(ga8, gb8)
@@ -148,5 +147,5 @@ def sphere_contact_pairs(ga8, gb8) -> Contact:
     if err != 0:
         raise RuntimeError(f"sphere_contact kernel launch failed: "
                            f"cudaError {err}")
-    LAUNCHES += 1
+    launches.count(__name__, "LAUNCHES")
     return _contact(o1, o2)

@@ -43,7 +43,7 @@ import ctypes
 
 import torch
 
-from mgf_tpu_torch.ops import _build
+from mgf_tpu_torch.ops import _build, launches
 
 # kernel launches made by sequential_solve in this process (read and reset
 # by callers that must show the main path went through the kernel)
@@ -256,7 +256,6 @@ def sequential_solve(pts, body_a, body_b, valid, bodies, iters: int,
     over the valid points in order, friction textbook-clamped or, with
     ``mgf``, the reference's raw lambda.  CUDA tensors launch kernel K4;
     CPU tensors run :func:`sequential_solve_reference`."""
-    global LAUNCHES
     _check(pts, body_a, body_b, valid, bodies)
     if pts.device.type == "cpu":
         return sequential_solve_levels_reference(pts, body_a, body_b, valid,
@@ -279,7 +278,7 @@ def sequential_solve(pts, body_a, body_b, valid, bodies, iters: int,
     if err != 0:
         raise RuntimeError(f"sequential_solve kernel launch failed: "
                            f"cudaError {err}")
-    LAUNCHES += 1
+    launches.count(__name__, "LAUNCHES")
     return out[:, :6]
 
 

@@ -43,7 +43,7 @@ import ctypes
 
 import torch
 
-from mgf_tpu_torch.ops import _build
+from mgf_tpu_torch.ops import _build, launches
 
 _NCH = 18
 MAX_ROWS = 32     # a CUDA block is 32 columns x R rows, at most 1024 threads
@@ -253,13 +253,12 @@ def inner_sweeps(S, fields, term, self_p, acc, inner_iters: int):
     ragged edge).  CUDA tensors launch the kernel; CPU tensors run
     :func:`inner_sweeps_reference`.
     """
-    global LAUNCHES
     _check_term(S, fields, term, self_p, acc)
     if S.device.type == "cpu":
         return inner_sweeps_reference(S, fields, term, self_p, acc,
                                       inner_iters)
     out = _launch(S, fields, term, self_p, acc, inner_iters, S.shape[1])
-    LAUNCHES += 1
+    launches.count(__name__, "LAUNCHES")
     return out
 
 
@@ -279,7 +278,6 @@ def inner_sweeps_gather(S, fields, partner, rb, self_p, acc,
     launch the kernel; CPU tensors run
     :func:`inner_sweeps_gather_reference`.
     """
-    global LAUNCHES
     R, n = _rows(fields)
     K = int(n_gather_rows)
     if not 0 <= K <= R:
@@ -305,7 +303,7 @@ def inner_sweeps_gather(S, fields, partner, rb, self_p, acc,
                  rb.data_ptr(), self_p.data_ptr(), acc.data_ptr(),
                  s_out.data_ptr(), acc_out.data_ptr(), n, R,
                  int(inner_iters), S.shape[1], K, stream))
-    LAUNCHES += 1
+    launches.count(__name__, "LAUNCHES")
     return s_out, acc_out
 
 
@@ -340,7 +338,6 @@ def inner_sweeps_blockmajor(S, fields, term, self_p, acc, inner_iters: int):
     (S', acc') in the same layout.  CUDA tensors launch the kernel with a
     block stride; CPU tensors run :func:`inner_sweeps_blockmajor_reference`.
     """
-    global BLOCKMAJOR_LAUNCHES
     nb, block = S.shape[0], S.shape[-1]
     _check_term(S, fields, term, self_p, acc, lead=(nb,))
     if nb > 1 and block % _TILE:
@@ -350,5 +347,5 @@ def inner_sweeps_blockmajor(S, fields, term, self_p, acc, inner_iters: int):
         return inner_sweeps_blockmajor_reference(S, fields, term, self_p,
                                                  acc, inner_iters)
     out = _launch(S, fields, term, self_p, acc, inner_iters, block)
-    BLOCKMAJOR_LAUNCHES += 1
+    launches.count(__name__, "BLOCKMAJOR_LAUNCHES")
     return out

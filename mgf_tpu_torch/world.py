@@ -88,7 +88,10 @@ conds on ``need`` (rebuild or reuse the broadphase cache; keyed or
 positional warm matching) become ONE host read of ``need`` per cached
 step and a Python branch, and ``adapt_schedule`` reads ``warm_hit_frac``
 on the host when it is set.  That costs a device->host synchronisation
-per step.
+per step.  :func:`step` is :func:`step_head` (everything up to ``need``),
+that read, then :func:`step_tail`; neither segment reads the host or
+builds a tensor from host data, so ``graphs.CapturedStep`` replays each
+as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -854,28 +857,61 @@ def step(world: World, cfg: WorldConfig, collect_contacts: bool = False):
     return out
 
 
+class StepHead(NamedTuple):
+    """What the step's first segment (:func:`step_head`) hands to the rest
+    (:func:`step_tail`): the integrated state, the broadphase bounds, the
+    head's metric scalars and, on a cached fat grid, the staleness test
+    whose ``need`` the host reads.  ``x_end``, ``drift2`` and ``slack``
+    are None where the step keeps no cache."""
+    state: RigidBodyState
+    sv: ShapeView
+    alive: torch.Tensor
+    body_bounds: AABB
+    bounds: AABB
+    r_eff: torch.Tensor
+    reach_excess: torch.Tensor
+    span_excess: torch.Tensor
+    need: torch.Tensor
+    x_end: Vec3 = None
+    drift2: torch.Tensor = None
+    slack: torch.Tensor = None
+
+
+def reads_need(world: World, cfg: WorldConfig) -> bool:
+    """Whether a step of ``cfg`` on ``world`` reads ``need`` on the host:
+    the fat grid with a cache (``bp_every > 1`` or ``bp_margin > 0``) and
+    its state.  Every other step has no host read; its ``need`` is True."""
+    return (cfg.use_grid and cfg.broadphase in FAT_MODES
+            and (cfg.bp_margin > 0.0 or cfg.bp_every > 1)
+            and world.bp is not None)
+
+
 def _step(world: World, cfg: WorldConfig, collect_contacts: bool):
+    head = step_head(world, cfg)
+    if cfg.profile_stage == "integrate":
+        return world, {"probe": torch.sum(head.bounds.c.x)}
+    # the one host read of the step: rebuild or reuse (JAX: lax.cond)
+    rebuild = bool(head.need) if reads_need(world, cfg) else True
+    return step_tail(world, cfg, head, rebuild, collect_contacts)
+
+
+def step_head(world: World, cfg: WorldConfig) -> StepHead:
+    """The step up to its one host read: complete_motion, integrate, the
+    swept fat bounds with their excess metrics and, on a cached fat grid,
+    the staleness test ``need`` (rebuild the candidate list or reuse it).
+    It reads nothing on the host and builds no tensor from host data."""
     n_tris = world.terrain.a.x.shape[0]
     _check_config(cfg, world, n_tris)
-    rows_form = cfg.solver == "rows"
-    fused = cfg.fused_iso
     iso_mode = cfg.shape_mode == "spheres"
-    n_slots = 1 if iso_mode else 2
     state = complete_motion(world.bodies)
     state = integrate(state, cfg.dt, iso=iso_mode)
     n = state.n_bodies
     dev = state.x.x.device
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    f32 = lambda v: torch.full((), v, dtype=torch.float32, device=dev)
     sv = shape_view(state)
     light = cfg.light_metrics
-    # type-partitioned mixed narrowphase (see cfg.n_sphere_rows): needs
-    # the rows solver, type-sorted bodies and a culled (or absent) terrain
-    split_mixed = (rows_form and cfg.shape_mode == "mixed"
-                   and cfg.n_sphere_rows >= 0
-                   and (n_tris == 0 or cfg.terrain_bp in ("near", "grid")))
 
-    # ---- broadphase: all pairs, packed grid, or the fat grid (cached or
-    # not) ----
+    # ---- broadphase bounds ----
     alive = state.shape_r > 0.0
     body_bounds = _body_bounds(cfg, sv)
     bounds = broadphase.swept_fat_bounds(body_bounds, state.delta, cfg.fatten)
@@ -906,31 +942,10 @@ def _step(world: World, cfg: WorldConfig, collect_contacts: bool):
             span(bounds.c.z) / (gdims[2] * cfg.grid.cell_size)) - 1.0,
             min=0.0)
 
-    if cfg.profile_stage == "integrate":
-        return world, {"probe": torch.sum(bounds.c.x)}
-
-    bp = world.bp
-    new_bp = bp
-    rebuild = True
-    need = torch.tensor(True, device=dev)
-    bp_drift_excess = f32(0.0)
-    fat = cfg.use_grid and cfg.broadphase in FAT_MODES
-    if not fat:
-        # the packed grid (any broadphase name that is not a fat mode, as
-        # the JAX package's `elif cfg.use_grid`) or all pairs
-        if cfg.use_grid:
-            table = broadphase.build_grid(bounds.c, cfg.grid, valid=alive)
-            cand = broadphase.neighbor_candidates(bounds.c, table, cfg.grid)
-            overflow = table.overflow
-        else:
-            cand = broadphase.all_pairs_candidates(n, dev)
-            overflow = torch.zeros((), dtype=torch.int32, device=dev)
-        partner, pair_ok = broadphase.refine_pairs(bounds, cand,
-                                                   cfg.max_pairs,
-                                                   ordered=not rows_form)
-        if cfg.stable_pairs and cfg.broadphase not in FAT_MODES:
-            partner, pair_ok = _stable_sort_pairs(partner, pair_ok)
-    elif (cfg.bp_margin > 0.0 or cfg.bp_every > 1) and bp is not None:
+    need = torch.ones((), dtype=torch.bool, device=dev)
+    x_end = drift2 = slack = None
+    if reads_need(world, cfg):
+        bp = world.bp
         x_end = state.x + state.delta
         drift2 = magnitude2(x_end - bp.anchor)
         margin_trip = (0.5 * cfg.bp_margin) ** 2
@@ -956,24 +971,75 @@ def _step(world: World, cfg: WorldConfig, collect_contacts: bool):
             slack = torch.full((n,), 0.5 * cfg.bp_margin,
                                dtype=torch.float32, device=dev)
             need = torch.max(drift2) > margin_trip
-        # the one host read of the step: rebuild or reuse (JAX: lax.cond)
-        rebuild = bool(need)
+    return StepHead(state=state, sv=sv, alive=alive, body_bounds=body_bounds,
+                    bounds=bounds, r_eff=r_eff, reach_excess=reach_excess,
+                    span_excess=span_excess, need=need, x_end=x_end,
+                    drift2=drift2, slack=slack)
+
+
+def step_tail(world: World, cfg: WorldConfig, head: StepHead, rebuild: bool,
+              collect_contacts: bool = False):
+    """The step after its host read, from :func:`step_head`'s output:
+    ``rebuild`` (a Python bool, the value of ``head.need``; True where the
+    step keeps no cache) picks the candidate list's rebuild or reuse and,
+    with ``warm_match="hybrid"``, the keyed or the positional warm match.
+    Returns what :func:`step` returns."""
+    n_tris = world.terrain.a.x.shape[0]
+    rows_form = cfg.solver == "rows"
+    fused = cfg.fused_iso
+    iso_mode = cfg.shape_mode == "spheres"
+    n_slots = 1 if iso_mode else 2
+    state, sv, alive = head.state, head.sv, head.alive
+    bounds, r_eff, need = head.bounds, head.r_eff, head.need
+    n = state.n_bodies
+    dev = state.x.x.device
+    f32 = lambda v: torch.full((), v, dtype=torch.float32, device=dev)
+    light = cfg.light_metrics
+    # type-partitioned mixed narrowphase (see cfg.n_sphere_rows): needs
+    # the rows solver, type-sorted bodies and a culled (or absent) terrain
+    split_mixed = (rows_form and cfg.shape_mode == "mixed"
+                   and cfg.n_sphere_rows >= 0
+                   and (n_tris == 0 or cfg.terrain_bp in ("near", "grid")))
+
+    # ---- broadphase: all pairs, packed grid, or the fat grid (cached or
+    # not) ----
+    bp = world.bp
+    new_bp = bp
+    bp_drift_excess = f32(0.0)
+    fat = cfg.use_grid and cfg.broadphase in FAT_MODES
+    if not fat:
+        # the packed grid (any broadphase name that is not a fat mode, as
+        # the JAX package's `elif cfg.use_grid`) or all pairs
+        if cfg.use_grid:
+            table = broadphase.build_grid(bounds.c, cfg.grid, valid=alive)
+            cand = broadphase.neighbor_candidates(bounds.c, table, cfg.grid)
+            overflow = table.overflow
+        else:
+            cand = broadphase.all_pairs_candidates(n, dev)
+            overflow = torch.zeros((), dtype=torch.int32, device=dev)
+        partner, pair_ok = broadphase.refine_pairs(bounds, cand,
+                                                   cfg.max_pairs,
+                                                   ordered=not rows_form)
+        if cfg.stable_pairs and cfg.broadphase not in FAT_MODES:
+            partner, pair_ok = _stable_sort_pairs(partner, pair_ok)
+    elif reads_need(world, cfg):
+        slack = head.slack
         if rebuild:
             fat_bounds = broadphase.swept_fat_bounds(
-                body_bounds, state.delta, cfg.fatten + cfg.bp_margin)
+                head.body_bounds, state.delta, cfg.fatten + cfg.bp_margin)
             if cfg.bp_every > 1:
                 fat_bounds = fat_bounds._replace(r=Vec3(
                     fat_bounds.r.x + slack, fat_bounds.r.y + slack,
                     fat_bounds.r.z + slack))
             partner, pair_ok, overflow = _fat_pairs(fat_bounds, alive, cfg)
-            new_bp = BpCache(partner=partner, ok=pair_ok, anchor=x_end,
+            new_bp = BpCache(partner=partner, ok=pair_ok, anchor=head.x_end,
                              overflow=overflow, count=bp.count + 1,
                              slack=slack, r_build=r_eff)
         else:
             partner, pair_ok = bp.partner, bp.ok
             new_bp = bp._replace(count=bp.count + 1)
             bp_drift_excess = torch.clamp(torch.max(torch.where(
-                alive, torch.sqrt(drift2) - bp.slack, 0.0)), min=0.0)
+                alive, torch.sqrt(head.drift2) - bp.slack, 0.0)), min=0.0)
         overflow = new_bp.overflow
     else:
         partner, pair_ok, overflow = _fat_pairs(bounds, alive, cfg)
@@ -1084,8 +1150,9 @@ def _step(world: World, cfg: WorldConfig, collect_contacts: bool):
         return world, {"probe": n_valid + max_pen}
 
     # what the step's tail reports, whichever solver runs
-    tail = dict(alive=alive, overflow=overflow, reach_excess=reach_excess,
-                span_excess=span_excess, t_reach_excess=t_reach_excess,
+    tail = dict(alive=alive, overflow=overflow,
+                reach_excess=head.reach_excess,
+                span_excess=head.span_excess, t_reach_excess=t_reach_excess,
                 need=need, bp_drift_excess=bp_drift_excess,
                 pair_ok_t=pair_ok_t, max_pen=max_pen,
                 rows_dropped=torch.zeros((), dtype=torch.int32, device=dev),

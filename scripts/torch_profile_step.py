@@ -22,12 +22,16 @@
   ``solver_rows=14``; no hand-written kernel).
 
 Steps the scene in chunks of ``--chunk`` (light interior metrics) for
-``--warmup`` steps, times ``--steps`` more with the host clock
-(synchronised per chunk), then traces one more chunk with
-``torch.profiler`` and prints: steps/s, device busy share of the traced
-window (sum of kernel times over wall time), device operations per step,
-the K1, K2 and K4 shares, and the top kernels by device time.  The full table
-goes to ``--out``.
+``--warmup`` steps, then, for the captured step (the chunk driver's
+default: CUDA graphs of the step replayed, ``graphs.CapturedStep``, on the
+paths it covers) and after it for the eager one (the same stepper
+switched to ``capture=False``, a Python loop over ``step``): times
+``--steps`` more with the host clock (synchronised per chunk), then traces
+one more chunk with ``torch.profiler`` and prints: steps/s and ms/step,
+device busy share (the traced window's kernel time per step over the
+timed ms/step), device operations (kernels and copies) per step, graph
+launches per step, the K1, K2 and K4 shares, and the top kernels by device
+time.  The full tables go to ``--out``.
 
     python3 scripts/torch_profile_step.py --bodies 100000 --warmup 600
     python3 scripts/torch_profile_step.py --scene cold20 --warmup 180
@@ -70,43 +74,49 @@ class _Plain:
     """Fixed-schedule chunks with the AdaptiveChunkStepper interface."""
 
     def __init__(self, cfg, chunk):
-        self.run = make_chunk_step(cfg, light=True)
+        self.run_chunk = make_chunk_step(cfg, light=True)
         self.chunk = chunk
         self.hot_on = False
 
     def step_chunk(self, world):
-        return self.run(world, torch.ones((self.chunk,), device="cuda"))
+        return self.run_chunk(world, torch.ones((self.chunk,),
+                                                device="cuda"))
 
 
-def _stepper(scene, bodies, chunk):
+def _scene(scene, bodies):
+    """(world, cfg) of ``scene``."""
     if scene == "balls":
         world, cfg = balls_scene(11)
-        return world, _Plain(cfg._replace(pallas_narrowphase=True), chunk)
+        return world, cfg._replace(pallas_narrowphase=True)
     if scene in ("balls_seq", "balls_par"):
         seq = scene == "balls_seq"
         world, cfg = balls_scene(11, solver="sequential" if seq
                                  else "parallel")
-        cfg = cfg._replace(pallas_narrowphase=True,
-                           friction_mode="mgf" if seq else cfg.friction_mode)
-        return world, _Plain(cfg, chunk)
+        return world, cfg._replace(
+            pallas_narrowphase=True,
+            friction_mode="mgf" if seq else cfg.friction_mode)
     if scene == "terrain":
-        world, cfg = terrain_scene(bodies or 10_000)
-        return world, _Plain(cfg, chunk)
+        return terrain_scene(bodies or 10_000)
     if scene == "capsules":
-        world, cfg = capsules_scene(11)
-        return world, _Plain(cfg, chunk)
+        return capsules_scene(11)
     bodies = bodies or 100_000
     if scene == "mixed":
-        world, cfg = stress_scene(bodies, mixed=True)
-        return world, AdaptiveChunkStepper(cfg, chunk=chunk, light=True)
+        return stress_scene(bodies, mixed=True)
     world, cfg = stress_scene(bodies)
     if scene == "flagship":
-        return world, AdaptiveChunkStepper(cfg, chunk=chunk, light=True)
+        return world, cfg
     cfg = cfg._replace(warm_start=False, fused_iso=False,
                        warm_match="search", adapt_schedule=None,
                        solver_iters=20, solver_inner=1, two_phase=True,
                        pallas_narrowphase=True)
-    return world._replace(warm=None), _Plain(cfg, chunk)
+    return world._replace(warm=None), cfg
+
+
+def _stepper(cfg, chunk):
+    """The scene's chunk stepper."""
+    if cfg.adapt_schedule is None:
+        return _Plain(cfg, chunk)
+    return AdaptiveChunkStepper(cfg, chunk=chunk, light=True)
 
 
 class _Guards:
@@ -151,6 +161,71 @@ def _dev_time(ev):
     return 0.0
 
 
+def _measure(label, st, world, guards, args):
+    """Time ``--steps`` steps of ``st`` from ``world``, then trace one
+    more chunk; print both and return (the world, the traced table)."""
+    n_chunks = max(args.steps // args.chunk, 1)
+    rebuilds, t_run = 0, 0.0
+    for _ in range(n_chunks):
+        t0 = time.perf_counter()
+        world, m = st.step_chunk(world)
+        torch.cuda.synchronize()
+        t_run += time.perf_counter() - t0
+        rebuilds += int(m["broadphase_rebuilt"].sum())
+        guards.add(m)
+    steps = n_chunks * args.chunk
+    ms_step = 1e3 * t_run / steps
+    last = {k: float(v[-1]) for k, v in m.items()}
+    print(f"{label}: timed {steps} steps: {steps / t_run:.2f} steps/s, "
+          f"{ms_step:.2f} ms/step, rebuilds {rebuilds}, "
+          f"hot schedule {st.hot_on}, contacts {int(last['num_contacts'])}, "
+          f"max pen {last['max_penetration']:.4f}, warm_hit "
+          f"{last['warm_hit_frac']:.4f}, overflow "
+          f"{int(last['broadphase_overflow'])}")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    solver_sweep.LAUNCHES = 0
+    narrowphase.LAUNCHES = 0
+    sequential_solve.LAUNCHES = 0
+    cap = st.run_chunk.captured
+    replays = cap.replays if cap is not None else 0
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        world, m = st.step_chunk(world)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    replays = (cap.replays if cap is not None else 0) - replays
+    rebuilt = int(m["broadphase_rebuilt"].sum())
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) == torch.autograd
+               .DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    share = lambda tag: sum(e.time_range.elapsed_us() for e in kernels
+                            if tag in e.name)
+    k1_us, k2_us = share("solver_sweep"), share("sphere_contact")
+    k4_us = share("sequential_solve")
+    per_step = busy_us / 1e3 / args.chunk
+    print(f"{label}: traced {args.chunk} steps ({rebuilt} rebuilds): wall "
+          f"{1e3 * wall:.1f} ms (under the profiler), device "
+          f"{per_step:.3f} ms/step ({100.0 * per_step / ms_step:.1f}% busy "
+          f"of the timed {ms_step:.2f} ms/step), "
+          f"{len(kernels) / args.chunk:.0f} device operations/step, "
+          f"{replays / args.chunk:.2f} graph launches/step, K1 "
+          f"{k1_us / 1e3:.2f} ms ({solver_sweep.LAUNCHES} launches, "
+          f"{100.0 * k1_us / max(busy_us, 1):.1f}% of device time), K2 "
+          f"{k2_us / 1e3:.2f} ms ({narrowphase.LAUNCHES} launches, "
+          f"{100.0 * k2_us / max(busy_us, 1):.1f}% of device time), K4 "
+          f"{k4_us / 1e3:.2f} ms ({sequential_solve.LAUNCHES} launches, "
+          f"{100.0 * k4_us / max(busy_us, 1):.1f}% of device time)")
+    top = sorted(prof.key_averages(), key=_dev_time, reverse=True)[:12]
+    for ev in top:
+        print(f"  {_dev_time(ev) / 1e3:9.2f} ms  {ev.count:6d}x  "
+              f"{ev.key[:90]}")
+    return world, prof.key_averages().table(sort_by="self_cuda_time_total",
+                                            row_limit=40)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=sorted(WARMUP), default="flagship")
@@ -172,73 +247,33 @@ def main():
                          text=True, timeout=60).stdout.strip()
     print(f"device: {smi}")
     warmup = WARMUP[args.scene] if args.warmup is None else args.warmup
-    world, st = _stepper(args.scene, args.bodies, args.chunk)
+    world, cfg = _scene(args.scene, args.bodies)
+    st = _stepper(cfg, args.chunk)
     guards = _Guards()
     t0 = time.perf_counter()
     for _ in range(-(-warmup // args.chunk)):
         world, m = st.step_chunk(world)
         guards.add(m)
     torch.cuda.synchronize()
+    cap = st.run_chunk.captured
     print(f"scene {args.scene}, {world.bodies.n_bodies} bodies; warmup "
-          f"{warmup} steps: {time.perf_counter() - t0:.2f} s")
-
-    n_chunks = max(args.steps // args.chunk, 1)
-    rebuilds, t_run = 0, 0.0
-    for _ in range(n_chunks):
-        t0 = time.perf_counter()
-        world, m = st.step_chunk(world)
-        torch.cuda.synchronize()
-        t_run += time.perf_counter() - t0
-        rebuilds += int(m["broadphase_rebuilt"].sum())
-        guards.add(m)
-    steps = n_chunks * args.chunk
-    last = {k: float(v[-1]) for k, v in m.items()}
-    print(f"timed {steps} steps: {steps / t_run:.2f} steps/s, "
-          f"{1e3 * t_run / steps:.2f} ms/step, rebuilds {rebuilds}, "
-          f"hot schedule {st.hot_on}, contacts {int(last['num_contacts'])}, "
-          f"max pen {last['max_penetration']:.4f}, warm_hit "
-          f"{last['warm_hit_frac']:.4f}, overflow "
-          f"{int(last['broadphase_overflow'])}")
+          f"{warmup} steps: {time.perf_counter() - t0:.2f} s; "
+          + (f"captured: {cap.n_graphs} graphs, capture "
+             f"{cap.capture_seconds:.2f} s, graph memory "
+             f"{cap.graph_bytes / 2**20:.1f} MiB reserved"
+             if cap is not None else "eager (no graph on this path)"))
+    world, table = _measure("captured" if cap is not None else "default",
+                            st, world, guards, args)
+    tables = [table]
+    if cap is not None:
+        # the same stepper and schedule state, stepped eagerly from here
+        st.run_chunk.capture = False
+        world, table = _measure("eager", st, world, guards, args)
+        tables.append(table)
     print(guards.line(world))
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    solver_sweep.LAUNCHES = 0
-    narrowphase.LAUNCHES = 0
-    sequential_solve.LAUNCHES = 0
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        world, m = st.step_chunk(world)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rebuilt = int(m["broadphase_rebuilt"].sum())
-    kernels = [e for e in prof.events()
-               if getattr(e, "device_type", None) == torch.autograd
-               .DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    share = lambda tag: sum(e.time_range.elapsed_us() for e in kernels
-                            if tag in e.name)
-    k1_us, k2_us = share("solver_sweep"), share("sphere_contact")
-    k4_us = share("sequential_solve")
-    print(f"traced {args.chunk} steps ({rebuilt} rebuilds): wall "
-          f"{1e3 * wall:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
-          f"({100.0 * busy_us / (1e6 * wall):.1f}% busy), "
-          f"{len(kernels) / args.chunk:.0f} device operations/step, K1 "
-          f"{k1_us / 1e3:.2f} ms ({solver_sweep.LAUNCHES} launches, "
-          f"{100.0 * k1_us / max(busy_us, 1):.1f}% of device time), K2 "
-          f"{k2_us / 1e3:.2f} ms ({narrowphase.LAUNCHES} launches, "
-          f"{100.0 * k2_us / max(busy_us, 1):.1f}% of device time), K4 "
-          f"{k4_us / 1e3:.2f} ms ({sequential_solve.LAUNCHES} launches, "
-          f"{100.0 * k4_us / max(busy_us, 1):.1f}% of device time)")
-    table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                      row_limit=40)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
-        f.write(f"device: {smi}\n{table}\n")
-    top = sorted(prof.key_averages(), key=_dev_time, reverse=True)[:12]
-    for ev in top:
-        print(f"  {_dev_time(ev) / 1e3:9.2f} ms  {ev.count:6d}x  "
-              f"{ev.key[:90]}")
+        f.write(f"device: {smi}\n" + "\n".join(tables) + "\n")
 
 
 if __name__ == "__main__":

@@ -178,12 +178,14 @@ def _bench_r05_keys():
 
 def test_main_prints_bench_r05_keys(monkeypatch, capsys):
     """Every row of main() at tiny sizes: the secondary dict on stderr has
-    exactly BENCH_r05.json's keys, the headline is the last stdout line
+    exactly BENCH_r05.json's keys and the port's two graph keys, the
+    headline is the last stdout line
     with ``vs_baseline`` null, the device line comes first."""
     monkeypatch.setattr(bench_torch, "SCHEDULE", dict(
         balls=(2, 2, 1, 0), capsules=(2, 2, 1, 0), terrain=(2, 2, 1, 0),
         cold20=(2, 2, 1, 0), mixed=(4, 4, 2, 2), stress=(8, 4, 2, 4)))
     monkeypatch.setattr(bench_torch, "N_TERRAIN", 300)
+    monkeypatch.setattr(bench_torch, "STRESS_EAGER_STEPS", 4)
     monkeypatch.setattr(bench_torch, "N_GJK_PAIRS", 16)
     monkeypatch.setattr(bench_torch, "N_COMPOUND_PARTS", 64)
     monkeypatch.setattr(bench_torch, "N_RAYS", 64)
@@ -195,7 +197,12 @@ def test_main_prints_bench_r05_keys(monkeypatch, capsys):
     out, err = out.strip().splitlines(), err.strip().splitlines()
     secondary, headline = json.loads(err[-1]), json.loads(out[-1])
     sec_keys, head_keys = _bench_r05_keys()
-    assert set(secondary) == sec_keys
+    # BENCH_r05.json's keys and the two of the port's graph replays
+    assert set(secondary) == sec_keys | {"stress_captured",
+                                         "stress_eager_steps_per_sec"}
+    # on the CPU the chunks run eagerly: no graph
+    assert secondary["stress_captured"] is False
+    assert secondary["stress_eager_steps_per_sec"] > 0.0
     assert head_keys <= set(headline) and headline["vs_baseline"] is None
     assert headline["metric"] == ("physics steps/sec at 600 spheres "
                                   "(stress scene)")

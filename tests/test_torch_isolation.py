@@ -50,6 +50,7 @@ def test_port_imports_no_jax():
             "mgf_tpu_torch.entry", "mgf_tpu_torch.utils",
             "mgf_tpu_torch.utils.checkpoint", "mgf_tpu_torch.utils.debug",
             "mgf_tpu_torch.utils.metrics", "mgf_tpu_torch.utils.slots",
+            "mgf_tpu_torch.graphs", "mgf_tpu_torch.ops.launches",
             "mgf_tpu_torch.parallel", "mgf_tpu_torch.parallel.comm",
             "mgf_tpu_torch.parallel.sharded",
             "mgf_tpu_torch.parallel.spatial"} <= set(names)
