@@ -16,7 +16,11 @@ per chunk.
 
 :class:`AdaptiveChunkStepper` picks the solver schedule on the host from
 ``warm_hit_frac``, read two chunks late from a copy taken when its chunk
-ended, with the same patience rule as the JAX package.
+ended, with the same patience rule as the JAX package.  With ``tracing``
+on it counts the steps run on each schedule, and its host spans
+``driver.chunk`` (a whole :meth:`AdaptiveChunkStepper.step_chunk`) and
+``driver.schedule_read`` (the read of a lagged ``warm_hit_frac``) hold
+the chunk's spans.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import functools
 
 import torch
 
-from mgf_tpu_torch.graphs import CapturedStep, capture_refusal
+from mgf_tpu_torch import tracing
+from mgf_tpu_torch.graphs import CapturedStep, capture_refusal, span_or_null
 from mgf_tpu_torch.world import WorldConfig, step
 
 __all__ = ["make_chunk_step", "AdaptiveChunkStepper"]
@@ -140,15 +145,24 @@ class AdaptiveChunkStepper:
     def step_chunk(self, world, scales=None):
         """Run one chunk; returns (world, stacked metrics).  The schedule
         used was decided from the chunk-before-last's metrics."""
-        if scales is None:
-            scales = torch.ones((self.chunk,), dtype=torch.float32,
-                                device=world.bodies.x.x.device)
-        while len(self._pending) >= 2:
-            self._drain_one()
-        f = self.hot if self.hot_on else self.full
-        world, m = f(world, scales)
-        # the metrics are the chunk's own copy: no later chunk writes them
-        self._pending.append(m["warm_hit_frac"][-1])
+        span = span_or_null()
+        with span("driver.chunk"):
+            if scales is None:
+                scales = torch.ones((self.chunk,), dtype=torch.float32,
+                                    device=world.bodies.x.x.device)
+            while len(self._pending) >= 2:
+                with span("driver.schedule_read"):
+                    self._drain_one()
+            f = self.hot if self.hot_on else self.full
+            world, m = f(world, scales)
+            # the metrics are the chunk's own copy: no later chunk writes
+            # them
+            self._pending.append(m["warm_hit_frac"][-1])
+        if tracing.ON:
+            cfg = self.run_chunk.cfg
+            sched = (self.hot.keywords["schedule"] if self.hot_on
+                     else (cfg.solver_iters, cfg.solver_inner))
+            tracing.count_schedule(*sched, scales.shape[0], self.hot_on)
         return world, m
 
     def run(self, world, n_steps, scales=None):

@@ -40,21 +40,39 @@ sums the device memory reserved by the captures.
 
 On a CPU world the same bookkeeping runs with every segment eager: the
 CPU tests hold it against the functional chunk of ``driver.py``.
+
+With ``tracing`` on, the graphs carry the step's device stamps (graphs
+captured with tracing on and off are separate variants), :meth:`run`
+stamps its own work outside them, and the host spans ``graphs.load``,
+``graphs.replay_head``, ``graphs.need_read``, ``graphs.replay_tail`` (on a
+step with no host read, ``graphs.replay_step``), ``graphs.snapshot`` and
+``graphs.capture`` time the host's side of a chunk.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
+from torch.autograd import profiler as _profiler
 
+from mgf_tpu_torch import tracing
 from mgf_tpu_torch import world as W
 from mgf_tpu_torch.math3d import tree_map
 from mgf_tpu_torch.ops import launches
 
-__all__ = ["CapturedStep", "capture_refusal"]
+__all__ = ["CapturedStep", "capture_refusal", "span_or_null"]
 
 _ALIGN = 64   # elements: each static tensor starts 256-byte aligned
+
+
+def span_or_null():
+    """``tracing.span`` while tracing is on or a profiler records, else a
+    context of the same call that does nothing: a span site tests this
+    once per chunk."""
+    return (tracing.span if tracing.ON or _profiler._is_profiler_enabled
+            else contextlib.nullcontext)
 
 
 def capture_refusal(cfg: W.WorldConfig):
@@ -221,6 +239,8 @@ class CapturedStep:
     # ---- the segments ----
 
     def _head(self, cfg):
+        if tracing.ON:
+            tracing.stamp("step_gap", self.device)
         b = self.world.bodies
         scale = torch.index_select(self.nonce, 0, self.index)
         w = self.world._replace(bodies=b._replace(force=b.force * scale))
@@ -229,6 +249,8 @@ class CapturedStep:
     def _tail(self, cfg, head, rebuild):
         new, metrics = W.step_tail(self.world, cfg, head, rebuild)
         self._commit(new, metrics)
+        if tracing.ON:
+            tracing.stamp("finish", self.device, rebuild)
 
     def _commit(self, new, metrics):
         """Copy the new state into the static buffers, write the metrics
@@ -291,17 +313,18 @@ class CapturedStep:
             out = fn()
         self._main.wait_stream(self._side)
         t0 = time.perf_counter()
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()      # what the capture reserves is its own
-        reserved = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with launches.recording() as rec, torch.cuda.graph(
-                    graph, capture_error_mode="global"):
-                captured = fn()
-        except RuntimeError as e:
-            raise RuntimeError(f"capturing step segment {key} failed: "
-                               f"{e}") from e
+        with span_or_null()("graphs.capture"):
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()    # what the capture reserves is its own
+            reserved = torch.cuda.memory_reserved(self.device)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with launches.recording() as rec, torch.cuda.graph(
+                        graph, capture_error_mode="global"):
+                    captured = fn()
+            except RuntimeError as e:
+                raise RuntimeError(f"capturing step segment {key} failed: "
+                                   f"{e}") from e
         self.capture_seconds += time.perf_counter() - t0
         self.graph_bytes += (torch.cuda.memory_reserved(self.device)
                              - reserved)
@@ -329,9 +352,16 @@ class CapturedStep:
             raise ValueError(f"scales must be (C,) with 1 <= C <= "
                              f"{self.chunk}, got {tuple(scales.shape)}")
         C = scales.shape[0]
-        self._load(world)
-        self.nonce[:C].copy_(scales)
-        self.index.zero_()
+        on = tracing.ON
+        span = span_or_null()
+        if on:
+            tracing.stamp("call_gap", self.device)
+        with span("graphs.load"):
+            self._load(world)
+            self.nonce[:C].copy_(scales)
+            self.index.zero_()
+        if on:
+            tracing.stamp("chunk_in", self.device)
         cfg = self.cfg
         if schedule is not None:
             cfg = cfg._replace(solver_iters=int(schedule[0]),
@@ -341,16 +371,23 @@ class CapturedStep:
             light = (i < C - 1) if self.light else cfg.light_metrics
             c = cfg._replace(light_metrics=light)
             if self._cached:
-                head = self._segment(("head", light),
-                                     lambda: self._head(c), pure=True)
-                rebuild = bool(head.need)
-                self._segment(("tail", light, rebuild, sched),
-                              lambda: self._tail(c, head, rebuild),
-                              pure=False)
+                with span("graphs.replay_head"):
+                    head = self._segment(("head", light, on),
+                                         lambda: self._head(c), pure=True)
+                with span("graphs.need_read"):
+                    rebuild = bool(head.need)
+                with span("graphs.replay_tail"):
+                    self._segment(("tail", light, rebuild, sched, on),
+                                  lambda: self._tail(c, head, rebuild),
+                                  pure=False)
             else:
-                self._segment(("step", light, sched),
-                              lambda: self._tail(c, self._head(c), True),
-                              pure=False)
-        metrics = {d: b[:, :C].clone() for d, b in self._rows.items()}
-        return self._snapshot(), {k: metrics[d][j]
-                                  for k, (d, j) in self._keys.items()}
+                with span("graphs.replay_step"):
+                    self._segment(("step", light, sched, on),
+                                  lambda: self._tail(c, self._head(c), True),
+                                  pure=False)
+        with span("graphs.snapshot"):
+            metrics = {d: b[:, :C].clone() for d, b in self._rows.items()}
+            out = self._snapshot()
+        if on:
+            tracing.stamp("chunk_out", self.device)
+        return out, {k: metrics[d][j] for k, (d, j) in self._keys.items()}

@@ -61,7 +61,8 @@ Counterpart of ``mgf_tpu.world`` (reference: ``mgf_demo/world.rs:227-294``,
 * **stage probes** (``profile_stage``): the step stops after the named
   stage and returns the INPUT world with ``{"probe": scalar}``, the JAX
   package's probe expressions; the stages after ``"terrain"`` exist on
-  the rows solver only.
+  the rows solver only.  With ``tracing`` on, a device stamp closes each
+  stage at the same checkpoints, in a whole step (and inside CUDA graphs).
 
 The module also holds the host-side world surgery of the JAX package:
 :func:`extend_world` / :func:`remove_bodies` (the body count changes) and
@@ -102,7 +103,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mgf_tpu_torch import broadphase
+from mgf_tpu_torch import broadphase, tracing
 from mgf_tpu_torch.bounds import capsule_aabb, sphere_aabb
 from mgf_tpu_torch.broadphase import GridConfig
 from mgf_tpu_torch.collision import (
@@ -887,12 +888,17 @@ def reads_need(world: World, cfg: WorldConfig) -> bool:
 
 
 def _step(world: World, cfg: WorldConfig, collect_contacts: bool):
+    if tracing.ON:
+        tracing.stamp("step_gap", world.bodies.x.x.device)
     head = step_head(world, cfg)
     if cfg.profile_stage == "integrate":
         return world, {"probe": torch.sum(head.bounds.c.x)}
     # the one host read of the step: rebuild or reuse (JAX: lax.cond)
     rebuild = bool(head.need) if reads_need(world, cfg) else True
-    return step_tail(world, cfg, head, rebuild, collect_contacts)
+    out = step_tail(world, cfg, head, rebuild, collect_contacts)
+    if tracing.ON:
+        tracing.stamp("finish", world.bodies.x.x.device, rebuild)
+    return out
 
 
 def step_head(world: World, cfg: WorldConfig) -> StepHead:
@@ -907,6 +913,8 @@ def step_head(world: World, cfg: WorldConfig) -> StepHead:
     state = integrate(state, cfg.dt, iso=iso_mode)
     n = state.n_bodies
     dev = state.x.x.device
+    if tracing.ON:
+        tracing.stamp("integrate", dev)
     f32 = lambda v: torch.full((), v, dtype=torch.float32, device=dev)
     sv = shape_view(state)
     light = cfg.light_metrics
@@ -971,6 +979,8 @@ def step_head(world: World, cfg: WorldConfig) -> StepHead:
             slack = torch.full((n,), 0.5 * cfg.bp_margin,
                                dtype=torch.float32, device=dev)
             need = torch.max(drift2) > margin_trip
+    if tracing.ON:
+        tracing.stamp("bounds", dev)
     return StepHead(state=state, sv=sv, alive=alive, body_bounds=body_bounds,
                     bounds=bounds, r_eff=r_eff, reach_excess=reach_excess,
                     span_excess=span_excess, need=need, x_end=x_end,
@@ -993,6 +1003,8 @@ def step_tail(world: World, cfg: WorldConfig, head: StepHead, rebuild: bool,
     bounds, r_eff, need = head.bounds, head.r_eff, head.need
     n = state.n_bodies
     dev = state.x.x.device
+    if tracing.ON:
+        tracing.stamp("need_gap", dev, rebuild)
     f32 = lambda v: torch.full((), v, dtype=torch.float32, device=dev)
     light = cfg.light_metrics
     # type-partitioned mixed narrowphase (see cfg.n_sphere_rows): needs
@@ -1043,6 +1055,8 @@ def step_tail(world: World, cfg: WorldConfig, head: StepHead, rebuild: bool,
         overflow = new_bp.overflow
     else:
         partner, pair_ok, overflow = _fat_pairs(bounds, alive, cfg)
+    if tracing.ON:
+        tracing.stamp("pairs", dev, rebuild)
     if cfg.profile_stage == "pairs":
         return world, {"probe": _isum(partner) + _isum(pair_ok)}
 
@@ -1092,6 +1106,8 @@ def step_tail(world: World, cfg: WorldConfig, head: StepHead, rebuild: bool,
                       contact=pc)
     prox = manifold_prox_sq(cfg)
     pair_manifold = prune(lc, max_contacts=n_slots, prox_sq=prox)
+    if tracing.ON:
+        tracing.stamp("narrow", dev, rebuild)
     if cfg.profile_stage == "narrow":
         return world, {"probe": _isum(pair_manifold.valid)
                        + torch.sum(pair_manifold.local_a.x)}
@@ -1143,6 +1159,8 @@ def step_tail(world: World, cfg: WorldConfig, head: StepHead, rebuild: bool,
         t_manifold = prune(t_lc, max_contacts=n_slots, prox_sq=prox)
         if not light:
             max_pen = torch.maximum(max_pen, _deepest(tc))
+    if tracing.ON:
+        tracing.stamp("terrain", dev, rebuild)
     if cfg.profile_stage == "terrain":
         n_valid = _isum(pair_manifold.valid)
         if n_tris > 0:
@@ -1188,6 +1206,8 @@ def step_tail(world: World, cfg: WorldConfig, head: StepHead, rebuild: bool,
                                     device=dev))
         v, omega, rc_valid = _flat_solve(cfg, manifolds, idx_a, idx_b,
                                          bodies_ext, n)
+        if tracing.ON:
+            tracing.stamp("solve", dev, rebuild)
         return _finish(world, cfg, state, v, omega, rc_valid, tail,
                        world.warm, new_bp, streams)
 
@@ -1222,6 +1242,8 @@ def step_tail(world: World, cfg: WorldConfig, head: StepHead, rebuild: bool,
         # the latest-TOI rows are dropped (counted in the metrics)
         man_rows, partner_rows, key2_rows, tail["rows_dropped"] = \
             _compact_rows(man_rows, partner_rows, key2_rows, cfg.solver_rows)
+    if tracing.ON:
+        tracing.stamp("rows", dev, rebuild)
     if cfg.profile_stage == "rows":
         return world, {"probe": _isum(man_rows.valid) + _isum(partner_rows)}
     rc_valid = man_rows.valid
@@ -1286,6 +1308,8 @@ def step_tail(world: World, cfg: WorldConfig, head: StepHead, rebuild: bool,
                                        bias_max=cfg.bias_max)
             solver_inertia = bodies_ext.inv_moment
 
+    if tracing.ON:
+        tracing.stamp("constraints", dev, rebuild)
     if cfg.profile_stage == "constraints":
         if rc is None:
             return world, {"probe": torch.sum(rc_a.bias)
@@ -1306,6 +1330,8 @@ def step_tail(world: World, cfg: WorldConfig, head: StepHead, rebuild: bool,
             g = cfg.warm_gamma
             wn, wt1, wt2 = wn * g, wt1 * g, wt2 * g
         warm = (wn, wt1, wt2)
+    if tracing.ON:
+        tracing.stamp("warm", dev, rebuild)
     if cfg.profile_stage == "warm":
         probe = _isum(rc_valid)
         if warm is not None:
@@ -1377,6 +1403,8 @@ def step_tail(world: World, cfg: WorldConfig, head: StepHead, rebuild: bool,
                               acc_t2=acc[2])
     else:
         v, omega, _ = run_solve(*schedule)
+    if tracing.ON:
+        tracing.stamp("solve", dev, rebuild)
     if cfg.profile_stage == "solve":
         return world, {"probe": torch.sum(v.x) + torch.sum(omega.x)}
     return _finish(world, cfg, state, v, omega, rc_valid, tail, new_warm,
@@ -1404,6 +1432,8 @@ def _finish(world: World, cfg: WorldConfig, state: RigidBodyState, v, omega,
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     num_contacts = (zero_i if light
                     else torch.sum(rc_valid).to(torch.int32))
+    if tracing.ON:
+        tracing.count(dev, mv["pair_ok_t"], rc_valid)
     metrics = {
         "num_alive": zero_i if light else
         torch.sum(mv["alive"]).to(torch.int32),

@@ -22,16 +22,17 @@
   ``solver_rows=14``; no hand-written kernel).
 
 Steps the scene in chunks of ``--chunk`` (light interior metrics) for
-``--warmup`` steps, then, for the captured step (the chunk driver's
-default: CUDA graphs of the step replayed, ``graphs.CapturedStep``, on the
-paths it covers) and after it for the eager one (the same stepper
-switched to ``capture=False``, a Python loop over ``step``): times
-``--steps`` more with the host clock (synchronised per chunk), then traces
-one more chunk with ``torch.profiler`` and prints: steps/s and ms/step,
-device busy share (the traced window's kernel time per step over the
-timed ms/step), device operations (kernels and copies) per step, graph
-launches per step, the K1, K2 and K4 shares, and the top kernels by device
-time.  The full tables go to ``--out``.
+``--warmup`` steps with the program's tracing on, then, for the captured
+step (the chunk driver's default: CUDA graphs of the step replayed,
+``graphs.CapturedStep``, on the paths it covers) and after it for the
+eager one (the same stepper switched to ``capture=False``): times
+``--steps`` more with the host clock (synchronised per chunk) and prints
+steps/s and the program's stage table over those steps
+(``tracing.summary``: device ms a step by stage and layer, idle share,
+the host's wait on ``need``, counters); then traces one more chunk with
+``torch.profiler`` and prints device operations and graph launches per
+step, the K1, K2 and K4 launches and the top kernels by device time.  The
+full tables go to ``--out``.
 
     python3 scripts/torch_profile_step.py --bodies 100000 --warmup 600
     python3 scripts/torch_profile_step.py --scene cold20 --warmup 180
@@ -55,6 +56,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from mgf_tpu_torch import tracing  # noqa: E402
 from mgf_tpu_torch.driver import (  # noqa: E402
     AdaptiveChunkStepper, make_chunk_step,
 )
@@ -161,11 +163,28 @@ def _dev_time(ev):
     return 0.0
 
 
+def _stage_line(label, rec):
+    """The program's stage table of ``rec`` (``tracing.record()``): device
+    ms a step by stage, then by layer, the idle share, the host's wait on
+    ``need`` and the counters."""
+    t = tracing.summary(rec)
+    fmt = lambda d: ", ".join(f"{k} {v:.3f}" for k, v in d.items()
+                              if not isinstance(v, dict) and v is not None)
+    return (f"{label}: {t['steps']} stamped steps, device ms a step: "
+            f"{fmt(t['stages'])}; {fmt(t)}; {rec['counters']}, schedules "
+            f"{rec['schedules']}")
+
+
 def _measure(label, st, world, guards, args):
-    """Time ``--steps`` steps of ``st`` from ``world``, then trace one
-    more chunk; print both and return (the world, the traced table)."""
+    """Time ``--steps`` steps of ``st`` from ``world`` and print the stage
+    table of those steps, then trace one more chunk; returns (the world,
+    the traced table)."""
     n_chunks = max(args.steps // args.chunk, 1)
     rebuilds, t_run = 0, 0.0
+    cap = st.run_chunk.captured
+    graphs = cap.n_graphs if cap is not None else 0
+    torch.cuda.synchronize()
+    tracing.reset()
     for _ in range(n_chunks):
         t0 = time.perf_counter()
         world, m = st.step_chunk(world)
@@ -173,57 +192,46 @@ def _measure(label, st, world, guards, args):
         t_run += time.perf_counter() - t0
         rebuilds += int(m["broadphase_rebuilt"].sum())
         guards.add(m)
+    rec = tracing.record()
     steps = n_chunks * args.chunk
-    ms_step = 1e3 * t_run / steps
     last = {k: float(v[-1]) for k, v in m.items()}
     print(f"{label}: timed {steps} steps: {steps / t_run:.2f} steps/s, "
-          f"{ms_step:.2f} ms/step, rebuilds {rebuilds}, "
+          f"{1e3 * t_run / steps:.2f} ms/step, rebuilds {rebuilds}, "
           f"hot schedule {st.hot_on}, contacts {int(last['num_contacts'])}, "
           f"max pen {last['max_penetration']:.4f}, warm_hit "
           f"{last['warm_hit_frac']:.4f}, overflow "
           f"{int(last['broadphase_overflow'])}")
+    line = _stage_line(label, rec)
+    if cap is not None and cap.n_graphs > graphs:
+        line += (f" ({cap.n_graphs - graphs} graph(s) captured in these "
+                 "steps: the captures' host time is in the table)")
+    print(line)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     solver_sweep.LAUNCHES = 0
     narrowphase.LAUNCHES = 0
     sequential_solve.LAUNCHES = 0
-    cap = st.run_chunk.captured
     replays = cap.replays if cap is not None else 0
     with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
         world, m = st.step_chunk(world)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     replays = (cap.replays if cap is not None else 0) - replays
-    rebuilt = int(m["broadphase_rebuilt"].sum())
-    kernels = [e for e in prof.events()
-               if getattr(e, "device_type", None) == torch.autograd
-               .DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    share = lambda tag: sum(e.time_range.elapsed_us() for e in kernels
-                            if tag in e.name)
-    k1_us, k2_us = share("solver_sweep"), share("sphere_contact")
-    k4_us = share("sequential_solve")
-    per_step = busy_us / 1e3 / args.chunk
-    print(f"{label}: traced {args.chunk} steps ({rebuilt} rebuilds): wall "
-          f"{1e3 * wall:.1f} ms (under the profiler), device "
-          f"{per_step:.3f} ms/step ({100.0 * per_step / ms_step:.1f}% busy "
-          f"of the timed {ms_step:.2f} ms/step), "
-          f"{len(kernels) / args.chunk:.0f} device operations/step, "
-          f"{replays / args.chunk:.2f} graph launches/step, K1 "
-          f"{k1_us / 1e3:.2f} ms ({solver_sweep.LAUNCHES} launches, "
-          f"{100.0 * k1_us / max(busy_us, 1):.1f}% of device time), K2 "
-          f"{k2_us / 1e3:.2f} ms ({narrowphase.LAUNCHES} launches, "
-          f"{100.0 * k2_us / max(busy_us, 1):.1f}% of device time), K4 "
-          f"{k4_us / 1e3:.2f} ms ({sequential_solve.LAUNCHES} launches, "
-          f"{100.0 * k4_us / max(busy_us, 1):.1f}% of device time)")
+    ops = sum(1 for e in prof.events()
+              if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False))
+    print(f"{label}: traced {args.chunk} steps: {ops / args.chunk:.0f} "
+          f"device operations/step (stamps included), "
+          f"{replays / args.chunk:.2f} graph launches/step, launches K1 "
+          f"{solver_sweep.LAUNCHES}, K2 {narrowphase.LAUNCHES}, K4 "
+          f"{sequential_solve.LAUNCHES}")
     top = sorted(prof.key_averages(), key=_dev_time, reverse=True)[:12]
     for ev in top:
         print(f"  {_dev_time(ev) / 1e3:9.2f} ms  {ev.count:6d}x  "
               f"{ev.key[:90]}")
-    return world, prof.key_averages().table(sort_by="self_cuda_time_total",
-                                            row_limit=40)
+    return world, line + "\n" + prof.key_averages().table(
+        sort_by="self_cuda_time_total", row_limit=40)
 
 
 def main():
@@ -247,6 +255,7 @@ def main():
                          text=True, timeout=60).stdout.strip()
     print(f"device: {smi}")
     warmup = WARMUP[args.scene] if args.warmup is None else args.warmup
+    tracing.enable("cuda")      # before the graphs are captured
     world, cfg = _scene(args.scene, args.bodies)
     st = _stepper(cfg, args.chunk)
     guards = _Guards()
