@@ -402,10 +402,13 @@ def escaped_bodies(world, floor=-1.0):
 def launch_counters():
     """(kernel, module, attribute) of each hand-written kernel's launch
     count."""
-    from mgf_tpu_torch.ops import narrowphase, sequential_solve, solver_sweep
+    from mgf_tpu_torch.ops import (
+        narrowphase, sequential_solve, solver_sweep, terrain,
+    )
     return (("K1", solver_sweep, "LAUNCHES"), ("K2", narrowphase, "LAUNCHES"),
             ("K3", solver_sweep, "BLOCKMAJOR_LAUNCHES"),
-            ("K4", sequential_solve, "LAUNCHES"))
+            ("K4", sequential_solve, "LAUNCHES"),
+            ("K5", terrain, "LAUNCHES"))
 
 
 @contextlib.contextmanager

@@ -33,9 +33,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
    the chunk driver's default on the card, as in every phase that steps
    through it: [4], [7], [8], [11], [21], [24], [33], [35]; the capsule,
    terrain and flat-solver paths step eagerly), with the physics guards
-   checked and K1's launch count held to the solver's outer iterations
-   (one gather-mode launch per outer iteration); its contacts at steps 64
-   and 128 are [21]'s and [26]'s yardsticks
+   checked, K1's launch count held to the solver's outer iterations
+   (one gather-mode launch per outer iteration) and K5's to the steps;
+   its contacts at steps 64 and 128 are [21]'s and [26]'s yardsticks
    (every kernel's count is set to 0 before each path, [4], [7], [8],
    [11], [13], [15]-[17], [19]-[25], [29]-[32] and each run of [35], and
    in every rank of [26]-[28], and read after it; [33]'s process reports
@@ -48,7 +48,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    valid exactly, t and n atol 1e-4, witness points atol 1e-3;
 7. the generic branch at full size: the cold reference-schedule pile
    (stress_scene(100_000), warm starting off, 20 two-phase sweeps, K2 on)
-   stepped 64 steps, with its guards and K2's launches held to the steps;
+   stepped 64 steps, with its guards and K2's and K5's launches held to
+   the steps;
 8. the demo balls_scene(11) (1,332 bodies, packed grid, dense terrain,
    K2 on) stepped 280 steps, with its guards and K2's launches; its grid
    overflows while the block lands, as mgf_tpu's does on the same scene
@@ -217,9 +218,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
     finite state, max penetration < 0.5 at step 128, no escaped body,
     contacts at steps 64 and 128 within 3.5 % of [4]'s (mgf_tpu's own
     spatial-versus-single gap, scripts/mixed_reference_guards.py
-    --spatial: 3.34 % at 8,000 bodies, 1.06 % at 100,000), no kernel
-    launch; the wall time split into start-up, set-up, steps, checks and
-    exit;
+    --spatial: 3.34 % at 8,000 bodies, 1.06 % at 100,000), K5's launches
+    one a step on every rank and no other kernel's; the wall time split
+    into start-up, set-up, steps, checks and exit;
 27. the spatial step on the card against the CPU and against one device:
     an 8,000-body pile after 40 single-device card steps; one spatial step
     on 4 card ranks and on 4 CPU ranks from the same state (each rank's
@@ -289,13 +290,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
     of each step); the case that held is printed.  On the captured run the
     guards of [4] / [7] / [11] (finite state, overflow, drift excess 0,
     max penetration < 0.5, contacts, 0 escaped bodies) and K1's launches
-    equal to the outer iterations, K2's to the steps, on every run.  Then
+    equal to the outer iterations, K2's to the steps, K5's to the steps
+    (the flagship and the cold pile; the mixed pile launches none), on
+    every run, counted from 0 before each.  Then
     steps/s captured and eager (after the first chunks), 4 more steps of
     each (a shorter chunk on the same stepper and graphs) traced by
     torch.profiler (the device alone): device
     operations, device ms and graph launches per step and the device's
     busy share of the timed ms per step; capture seconds, the graphs'
     reserved memory, and nvidia-smi's name and power limit;
+36. (printed after [5]) K5 against its plain PyTorch version on the same
+    CUDA tensors: [4]'s pile stepped 512 more steps (640 from scratch,
+    eager), then the terrain stage of its next step's head (3 candidates,
+    ``stable_pairs``), light (no deepest penetration) and full: face ids
+    and ``valid`` exactly, every float within 1e-6 or 4 ulp, the lanes
+    that differ at all counted; both times (CUDA events) and the bound
+    from the run's bytes and operations (``k5_bound``);
 34. the smoke's wall time and each phase's seconds, a JSON line of
     per-kernel results, then the result line.
 
@@ -351,6 +361,15 @@ K2_OPS_PER_PAIR = 170
 K4_CHAIN_OPS = {"mgf": 37, "textbook": 41}
 K4_OP_CYCLES, K4_SMEM_CYCLES = 4, 30
 K4_TOL = dict(atol=1e-4, rtol=1e-5)
+# K5 (sphere_terrain.cu), float32 operations counted from the source, an
+# FMA as two: a body's sweep length and reach 15, the cull 18 a face
+# (three axes of two subtractions, a max, a clamp, a multiply and an add),
+# and a candidate 444 (the plane test 44, the containment test 22, three
+# edge sweeps of 111 with the closest point on the edge, the manifold and
+# basis 45)
+K5_OPS_PER_BODY, K5_OPS_PER_FACE, K5_OPS_PER_CAND = 15, 18, 444
+K5_ATOL, K5_ULPS = 1e-6, 4
+K5_MORE_STEPS = 512           # [36]: [4]'s pile 128 -> 640 steps
 N_TERRAIN = 10_000            # terrain_scene's default rain
 N_TERRAIN_E2E = 2_000
 # the demos on the flat solvers, at what mgf_tpu's own runs of the same
@@ -379,6 +398,16 @@ def sweep_bound(R, N, inner, K=None):
                    + 4 * gather)
     n_ops = (inner * (K1_OPS_PER_ROW_SWEEP * R * N + K1_OPS_PER_COL_SWEEP * N)
              + K1_OPS_PER_GATHER_ROW * gather)
+    return bound(n_bytes, n_ops)
+
+
+def k5_bound(n, n_tris, cand, with_deepest):
+    """K5: a body's 8 floats in, 16 floats, a valid byte and a face id a
+    candidate out, and its deepest penetration; the mesh read once."""
+    n_bytes = (4 * 8 * n + (16 * 4 + 1 + 4) * cand * n
+               + 4 * n * int(with_deepest) + 4 * (9 * n_tris + 3))
+    n_ops = n * (K5_OPS_PER_BODY + K5_OPS_PER_FACE * n_tris
+                 + K5_OPS_PER_CAND * cand)
     return bound(n_bytes, n_ops)
 
 
@@ -577,8 +606,8 @@ def phase_main_path(dev):
           f"{sps_all:.2f} incl. first two), contacts {contacts}, max "
           f"penetration {pen:.4f}, rebuilds {rebuilds}, warm_hit_frac "
           f"{hit:.4f}, overflow {overflow}, drift excess {drift}, K1 "
-          f"launches {launches} (expected {expected}); contacts at step 64 "
-          f"{contacts64}", flush=True)
+          f"launches {launches} (expected {expected}), K5 launches "
+          f"{counts['K5']}; contacts at step 64 {contacts64}", flush=True)
     check(finite, "non-finite x, v or omega")
     check(overflow == 0, f"broadphase overflow {overflow}")
     check(drift == 0.0, f"broadphase drift excess {drift}")
@@ -586,7 +615,84 @@ def phase_main_path(dev):
     check(pen < 0.5, f"max penetration {pen}")
     check(launches == expected and launches > 0,
           f"K1 launches {launches} != solver outer iterations {expected}")
+    check(counts["K5"] == steps,
+          f"K5 launches {counts['K5']} != steps {steps}")
     return counts, world, cfg, contacts64, contacts
+
+
+def _ulps(a, b):
+    """Distance in float32 steps (ordered integers of the bit patterns)."""
+    ia, ib = (t.contiguous().view(torch.int32).to(torch.int64)
+              for t in (a, b))
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return (ia - ib).abs()
+
+
+def _k5_fields(out):
+    """K5's outputs as named float tensors: the manifold's 16 fields and,
+    where computed, the deepest penetration."""
+    man, _, deep = out
+    f = {"time": man.time}
+    for k in ("normal", "t1", "t2", "local_a", "local_b"):
+        for c in "xyz":
+            f[f"{k}.{c}"] = getattr(getattr(man, k), c)
+    if deep is not None:
+        f["deepest"] = deep.reshape(1)
+    return f
+
+
+def phase_k5(pile, cfg, dev):
+    """[36] K5 against its plain version on the same CUDA tensors, at the
+    head of the step after [4]'s pile has run 512 more steps."""
+    from mgf_tpu_torch.driver import AdaptiveChunkStepper
+    from mgf_tpu_torch.ops import terrain
+    from mgf_tpu_torch.world import step_head
+    st = AdaptiveChunkStepper(cfg, chunk=64, light=True, capture=False)
+    world = _clone_world(pile)
+    for _ in range(K5_MORE_STEPS // 64):
+        world, _ = st.step_chunk(world)
+    s = step_head(world, cfg).state
+    n, n_tris = s.x.x.shape[0], world.terrain.a.x.shape[0]
+    cand = cfg.terrain_cand
+    out = {}
+    for with_deepest in (False, True):
+        args = (s.x, s.delta, s.shape_r, s.shape_half_h, world.terrain,
+                world.terrain_center, cand, cfg.stable_pairs, with_deepest)
+        got = terrain.sphere_terrain_near(*args)
+        ref = terrain.sphere_terrain_near_reference(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got[1], ref[1]) and torch.equal(got[0].valid,
+                                                          ref[0].valid),
+              f"[36] K5 face ids or valid differ from the plain version "
+              f"(deepest {with_deepest})")
+        err, differ, off = 0.0, {}, {}
+        for (k, a), b in zip(_k5_fields(got).items(),
+                             _k5_fields(ref).values()):
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            gap = torch.where(same, 0.0, (a - b).abs())
+            near = (gap <= K5_ATOL) | (_ulps(a, b) <= K5_ULPS)
+            err = max(err, float(gap.max()))
+            if not bool(same.all()):
+                differ[k] = int((~same).sum())
+            if not bool((same | near).all()):
+                off[k] = int((~(same | near)).sum())
+        check(not off, f"[36] K5 lanes past 1e-6 / 4 ulp: {off}")
+        ms = _time_ms(lambda: terrain.sphere_terrain_near(*args))
+        plain_ms = _time_ms(
+            lambda: terrain.sphere_terrain_near_reference(*args))
+        b_ms, b_by = k5_bound(n, n_tris, cand, with_deepest)
+        n_valid = int(ref[0].valid.sum())
+        tag = "full" if with_deepest else "light"
+        out[tag] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, differ=differ, n_valid=n_valid)
+        print(f"[36] K5 {tag} (deepest {with_deepest}) on [4]'s pile after "
+              f"{128 + K5_MORE_STEPS} steps, N={n}, {n_tris} faces, cand "
+              f"{cand}, stable {cfg.stable_pairs}: ids and valid equal "
+              f"({n_valid} valid slots), max_abs_err {err:.3g} (1e-6 or 4 "
+              f"ulp), lanes that differ at all {differ}; kernel {ms}, plain "
+              f"{plain_ms}, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return out
 
 
 def phase_end_to_end(dev):
@@ -718,13 +824,16 @@ def phase_cold_path(dev):
           f"two-phase sweeps, {steps} steps: {sps_late:.2f} steps/s (steps "
           f"17-{steps}), contacts {contacts}, max penetration {pen:.4f}, "
           f"rebuilds {rebuilds}, overflow {overflow}, drift excess {drift}, "
-          f"K2 launches {launches} (expected {steps})", flush=True)
+          f"K2 launches {launches} (expected {steps}), K5 launches "
+          f"{counts['K5']}", flush=True)
     check(_finite(world), "cold pile: non-finite x, v or omega")
     check(overflow == 0, f"cold pile: broadphase overflow {overflow}")
     check(drift == 0.0, f"cold pile: broadphase drift excess {drift}")
     check(contacts > 0, "cold pile: no contacts")
     check(pen < 0.5, f"cold pile: max penetration {pen}")
     check(launches == steps, f"cold pile: K2 launches {launches} != {steps}")
+    check(counts["K5"] == steps,
+          f"cold pile: K5 launches {counts['K5']} != {steps}")
     return counts
 
 
@@ -2047,11 +2156,13 @@ N_SHARDED_STEPS = 16
 
 def _rank_counters():
     """Launch and message counters of this rank's process."""
-    from mgf_tpu_torch.ops import narrowphase, sequential_solve, solver_sweep
+    from mgf_tpu_torch.ops import (
+        narrowphase, sequential_solve, solver_sweep, terrain,
+    )
     from mgf_tpu_torch.parallel import comm as pcomm
     return ((narrowphase, "LAUNCHES"), (sequential_solve, "LAUNCHES"),
             (solver_sweep, "LAUNCHES"), (solver_sweep, "BLOCKMAJOR_LAUNCHES"),
-            (pcomm, "BYTES"), (pcomm, "MESSAGES"))
+            (terrain, "LAUNCHES"), (pcomm, "BYTES"), (pcomm, "MESSAGES"))
 
 
 def _rank_zero():
@@ -2061,10 +2172,12 @@ def _rank_zero():
 
 def _rank_launches():
     """This rank's kernel launches since _rank_zero, as _counts names them."""
-    from mgf_tpu_torch.ops import narrowphase, sequential_solve, solver_sweep
+    from mgf_tpu_torch.ops import (
+        narrowphase, sequential_solve, solver_sweep, terrain,
+    )
     return {"K1": solver_sweep.LAUNCHES, "K2": narrowphase.LAUNCHES,
             "K3": solver_sweep.BLOCKMAJOR_LAUNCHES,
-            "K4": sequential_solve.LAUNCHES}
+            "K4": sequential_solve.LAUNCHES, "K5": terrain.LAUNCHES}
 
 
 def _timed_steps(comm, world, step_fn, steps, on_step=None):
@@ -2209,8 +2322,10 @@ def phase_spatial_pile(dev, contacts64, contacts128):
     for c, ref, k in ((c64, contacts64, 64), (c128, contacts128, steps)):
         check(abs(c - ref) <= SPATIAL_CONTACT_SHARE * ref,
               f"spatial pile: contacts {c} at step {k} vs [4]'s {ref}")
-    check(not any(launches.values()),
-          f"spatial pile launched a hand-written kernel: {launches}")
+    check(launches["K5"] == N_RANKS * steps
+          and not any(v for k, v in launches.items() if k != "K5"),
+          f"spatial pile: launches {launches}, K5 not one a step on each of "
+          f"{N_RANKS} ranks or another kernel launched")
     return launches
 
 
@@ -2665,11 +2780,12 @@ def phase_oracle_mixed(dev, job):
     return counts
 
 
-# [33] bench_torch.py --quick: the headline row (stress_scene(10_000), 1,600
-# steps of warm-up, 3 windows x 128 steps in chunks of 64, then 2 x bp_every
-# single steps), 2,112 steps, each with 2 (the settled 2x6 schedule) to 4
-# (4x4) outer iterations, one K1 launch each
-BENCH_QUICK_STEPS = 64 + 1600 + 3 * 128 + 64
+# [33] bench_torch.py --quick: the headline row (stress_scene(10_000), its
+# first chunk of 64, 1,600 steps of warm-up, 3 windows x 128 steps in chunks
+# of 64, 128 steps stepped eagerly, then 2 x bp_every single steps), 2,240
+# steps, each with 2 (the settled 2x6 schedule) to 4 (4x4) outer
+# iterations, one K1 launch each, and one K5 launch
+BENCH_QUICK_STEPS = 64 + 1600 + 3 * 128 + 128 + 64
 
 
 def phase_bench_quick():
@@ -2691,8 +2807,8 @@ def phase_bench_quick():
     prefix = "launches by row "
     rows = json.loads(next(x for x in err if x.startswith(prefix))[
         len(prefix):])
-    counts = {k: sum(r[k] for r in rows.values()) for k in ("K1", "K2", "K3",
-                                                            "K4")}
+    counts = {k: sum(r[k] for r in rows.values())
+              for k in ("K1", "K2", "K3", "K4", "K5")}
     print(f"[33] bench_torch.py --quick: exit 0 in {wall:.1f} s; {head}; "
           f"{sec}; launches {rows}", flush=True)
     values = [head["value"], sec["stress_max_penetration"],
@@ -2706,6 +2822,9 @@ def phase_bench_quick():
           f"bench quick: max penetration {sec['stress_max_penetration']}")
     check(2 * BENCH_QUICK_STEPS <= counts["K1"] <= 4 * BENCH_QUICK_STEPS,
           f"bench quick: K1 launches {counts['K1']} for "
+          f"{BENCH_QUICK_STEPS} steps")
+    check(counts["K5"] == BENCH_QUICK_STEPS,
+          f"bench quick: K5 launches {counts['K5']} for "
           f"{BENCH_QUICK_STEPS} steps")
     return counts
 
@@ -2806,7 +2925,7 @@ def phase_captured(dev):
     K1 launches equal to the outer iterations and K2's to the steps, then
     steps/s, device operations and graph launches per step, busy share,
     capture seconds and graph memory."""
-    total = {k: 0 for k in ("K1", "K2", "K3", "K4")}
+    total = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
     smi = card_line(dev)
     for name, (steps, chunk) in CAPTURED_PATHS.items():
         t_path = time.perf_counter()
@@ -2883,7 +3002,8 @@ def phase_captured(dev):
                 ok = n["K2"] == steps and n["K1"] == 0
             else:
                 ok = not any(n.values())
-            check(ok and n["K3"] == n["K4"] == 0,
+            k5 = 0 if name == "mixed" else steps
+            check(ok and n["K3"] == n["K4"] == 0 and n["K5"] == k5,
                   f"[35] {name} {t}: launches {n} (outer iterations "
                   f"{r['outer']}, steps {steps})")
         del runs, a, b, c, cap, w
@@ -2936,7 +3056,8 @@ def _phases(dev, name, t_start, jobs, native_s, ss, nph, seq):
         dev)
     paths = [main_counts]
     phase_end_to_end(dev)
-    lap("4-5")
+    k5 = phase_k5(pile, pile_cfg, dev)
+    lap("4-5, 36")
     k2 = phase_k2(nph, dev)
     paths.append(phase_cold_path(dev))
     demo, demo_cfg, demo_counts = phase_demo(dev)
@@ -2996,20 +3117,22 @@ def _phases(dev, name, t_start, jobs, native_s, ss, nph, seq):
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None}
 
-    # no single PyTorch call computes K1, K2, K3 or K4: library_ms is null.
+    # no single PyTorch call computes K1-K5: library_ms is null.
     laps.insert(0, ("", t_start))
     per_phase = ", ".join(f"[{t}] {t1 - t0:.1f}" for (_, t0), (t, t1)
                           in zip(laps, laps[1:]))
     print(f"[34] chip_smoke.py wall time {time.perf_counter() - t_start:.1f}"
           f" s; seconds by phase: {per_phase}", flush=True)
     # launches: each kernel's count summed over the paths ([4], [7], [8],
-    # [15], [16], [21]-[25], [29]-[31], [33], [35]; [11], [13], [17], [19],
-    # [20], [32] and the ranks of [26]-[28] launch none).  K1 in
+    # [15], [16], [21]-[25], [29]-[31], [33], [35], and K5 in the ranks of
+    # [26] and [27]; [11], [13], [17], [19], [20], [32] and the ranks of
+    # [28] launch none).  K1 in
     # gather mode at the main path's settled shape (inner 6); K2 at the
     # cold pile's 900,000 pairs; K3 at block 1024, inner 8; K4 at the full
     # demo's constraint list (ms, plain_ms: the level plain version on the
     # card), its bound the list's pipelined dependency depth times one
-    # update's chain of dependent float32 operations (k4_bound)
+    # update's chain of dependent float32 operations (k4_bound); K5 at
+    # [36]'s full call (the deepest penetration written)
     print(json.dumps({"kernels": [
         row("solver_sweep.inner_sweeps",
             "mgf_tpu_torch/ops/csrc/solver_sweep.cu",
@@ -3027,6 +3150,10 @@ def _phases(dev, name, t_start, jobs, native_s, ss, nph, seq):
             "mgf_tpu_torch/ops/csrc/sequential_solve.cu",
             "mgf_tpu/solver.py:192 (lax.scan; no Pallas twin)",
             launches["K4"], k4),
+        row("terrain.sphere_terrain_near",
+            "mgf_tpu_torch/ops/csrc/sphere_terrain.cu",
+            "none (mgf_tpu runs the stage as XLA fusions)", launches["K5"],
+            dict(k5["full"], err=max(v["err"] for v in k5.values()))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,7 +5,10 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o <lib> <source>
+         -Xcompiler -fPIC [<the source's own flags>] -o <lib> <source>
+
+(``SOURCE_FLAGS``: ``sphere_terrain.cu`` adds ``--fmad=false``, so that no
+multiply is contracted into an add it does not write as one.)
 
 The library lands in ``build/mgf_tpu_torch/`` at the repository root (or in
 the directory given to :func:`set_build_dir`), in a file named after a hash
@@ -30,6 +33,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mgf_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE_FLAGS = {"sphere_terrain": ["--fmad=false"]}
 
 _loaded = {}
 BUILD_SECONDS = {}   # source name -> seconds spent in nvcc this process
@@ -66,11 +70,16 @@ def set_build_dir(path) -> None:
     _BUILD_DIR = Path(path)
 
 
+def _flags(name: str):
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def _library_path(name: str) -> Path:
     """Where the library for ``csrc/<name>.cu`` lives (keyed by the
     source's hash and the compiler flags)."""
     src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(_flags(name)).encode()
+    digest = hashlib.sha256(src + flags).hexdigest()
     return _BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -89,7 +98,7 @@ def build_all(names=None):
     for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name), "-o", tmp, str(_CSRC / f"{name}.cu")]
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []

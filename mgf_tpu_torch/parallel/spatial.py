@@ -52,10 +52,13 @@ import torch
 
 from mgf_tpu_torch import broadphase
 from mgf_tpu_torch.collision import LocalContact
-from mgf_tpu_torch.geom import AABB, Triangle
+from mgf_tpu_torch.geom import AABB
 from mgf_tpu_torch.manifold import prune
 from mgf_tpu_torch.math3d import (
     Mat3, Vec3, cross, magnitude2, mat_vec, tree_map, vmax, vmin,
+)
+from mgf_tpu_torch.ops.terrain import (
+    gather_triangles, near_terrain, sphere_terrain_near,
 )
 from mgf_tpu_torch.parallel.sharded import pad_bodies, rank_rows, replicated
 from mgf_tpu_torch.physics import complete_motion, integrate
@@ -65,7 +68,7 @@ from mgf_tpu_torch.solver import (
 )
 from mgf_tpu_torch.world import (
     PackedShapes, SolverWarm, World, WorldConfig, _compact_rows, _deepest,
-    _grid_terrain, _isum, _man_to_rows, _match_warm, _near_terrain,
+    _grid_terrain, _isum, _man_to_rows, _match_warm, _one_pass_terrain,
     _pair_contact, _terrain_contact, _top_terrain_rows, gather_shapes,
     manifold_prox_sq, pack_shapes, self_shapes, shape_view, solver_row_count,
 )
@@ -457,41 +460,46 @@ def make_spatial_step(cfg: WorldConfig, comm, boundaries, halo: int = 256,
         key2s = [i32(S_pair)[:, None, None].expand(S_pair, K, n_loc)
                  .reshape(-1, n_loc)]
 
-        # ---- terrain narrowphase: dense | near | grid cull ----
+        # ---- terrain narrowphase: one pass for spheres against a small
+        # mesh (kernel K5), else dense | near | grid cull ----
         t_reach_excess = f32(0.0)
         if n_tris > 0:
-            if cfg.terrain_bp == "near":
-                t_cand, t_ok = _near_terrain(world, state, cfg)
+            if _one_pass_terrain(cfg, n_tris, False):
                 t_width = cfg.terrain_cand
-            elif cfg.terrain_bp == "grid":
-                t_cand, t_ok, _ = _grid_terrain(world, state, cfg)
-                t_width = cfg.terrain_cand
-                t_reach = (state.shape_r + state.shape_half_h
-                           + torch.sqrt(magnitude2(state.delta)))
-                t_reach_excess = torch.clamp(
-                    torch.max(torch.where(alive_own, t_reach, 0.0))
-                    - cfg.terrain_grid_cfg.cell_size, min=0.0)
+                t_man, t_tris, t_deep = sphere_terrain_near(
+                    state.x, state.delta, state.shape_r, state.shape_half_h,
+                    terrain, world.terrain_center, t_width, cfg.stable_pairs)
             else:
-                t_width = n_tris
-                t_cand = i32(n_tris)[None, :].expand(n_loc, n_tris)
-                t_ok = torch.ones((n_loc, n_tris), dtype=torch.bool,
-                                  device=dev)
-            if cfg.stable_pairs and cfg.terrain_bp in ("near", "grid"):
-                t_cand, t_ok = _sorted_pairs(t_cand, t_ok)
-            t_tris = torch.where(t_ok, t_cand, 0).T         # (T_w, n)
-            tpack = torch.stack([*terrain.a, *terrain.b, *terrain.c],
-                                dim=-1)
-            g9 = tpack[t_tris.long()]
-            tri = Triangle(a=Vec3(g9[..., 0], g9[..., 1], g9[..., 2]),
-                           b=Vec3(g9[..., 3], g9[..., 4], g9[..., 5]),
-                           c=Vec3(g9[..., 6], g9[..., 7], g9[..., 8]))
-            tc = _terrain_contact(cfg, ga, tri)
-            tc = tc._replace(valid=tc.valid & t_ok.T[None])
-            t_lc = LocalContact(local_a=tc.a - (ga.x + ga.delta * tc.t),
-                                local_b=tc.b - world.terrain_center,
-                                contact=tc)
-            tman = _man_to_rows(prune(t_lc, max_contacts=n_slots,
-                                      prox_sq=prox), t_width, n_loc)
+                if cfg.terrain_bp == "near":
+                    t_cand, t_ok = near_terrain(
+                        terrain, state.x, state.delta, state.shape_r,
+                        state.shape_half_h, cfg.terrain_cand)
+                    t_width = cfg.terrain_cand
+                elif cfg.terrain_bp == "grid":
+                    t_cand, t_ok, _ = _grid_terrain(world, state, cfg)
+                    t_width = cfg.terrain_cand
+                    t_reach = (state.shape_r + state.shape_half_h
+                               + torch.sqrt(magnitude2(state.delta)))
+                    t_reach_excess = torch.clamp(
+                        torch.max(torch.where(alive_own, t_reach, 0.0))
+                        - cfg.terrain_grid_cfg.cell_size, min=0.0)
+                else:
+                    t_width = n_tris
+                    t_cand = i32(n_tris)[None, :].expand(n_loc, n_tris)
+                    t_ok = torch.ones((n_loc, n_tris), dtype=torch.bool,
+                                      device=dev)
+                if cfg.stable_pairs and cfg.terrain_bp in ("near", "grid"):
+                    t_cand, t_ok = _sorted_pairs(t_cand, t_ok)
+                t_tris = torch.where(t_ok, t_cand, 0).T     # (T_w, n)
+                tri = gather_triangles(terrain, t_tris)
+                tc = _terrain_contact(cfg, ga, tri)
+                tc = tc._replace(valid=tc.valid & t_ok.T[None])
+                t_lc = LocalContact(local_a=tc.a - (ga.x + ga.delta * tc.t),
+                                    local_b=tc.b - world.terrain_center,
+                                    contact=tc)
+                t_man = prune(t_lc, max_contacts=n_slots, prox_sq=prox)
+                t_deep = _deepest(tc)
+            tman = _man_to_rows(t_man, t_width, n_loc)
             t_key2 = t_tris.reshape(1, t_width, n_loc).expand(
                 n_slots, t_width, n_loc).reshape(-1, n_loc)
             t_rows_n = tman.valid.shape[0]
@@ -503,7 +511,7 @@ def make_spatial_step(cfg: WorldConfig, comm, boundaries, halo: int = 256,
             partners.append(torch.full((t_rows_n, n_loc), m_rows,
                                        dtype=torch.int32, device=dev))
             key2s.append(t_key2)
-            max_pen = torch.maximum(max_pen, _deepest(tc))
+            max_pen = torch.maximum(max_pen, t_deep)
 
         man_rows = tree_map(lambda *xs: torch.cat(xs, dim=0), *blocks)
         partner_rows = torch.cat(partners, dim=0)

@@ -117,9 +117,13 @@ from mgf_tpu_torch.geom import AABB, Capsule, Sphere, Triangle
 from mgf_tpu_torch.manifold import PERSISTENT_THRESHOLD_SQ, Manifold, prune
 from mgf_tpu_torch.mesh import build_mesh_grid, mesh_from_arrays
 from mgf_tpu_torch.math3d import (
-    Quat, Vec3, dot, magnitude2, qrotate, tree_map, where_vec,
+    Quat, Vec3, magnitude2, qrotate, tree_map, where_vec,
 )
 from mgf_tpu_torch.ops.narrowphase import sphere_contact_pairs
+from mgf_tpu_torch.ops.terrain import (
+    MAX_CAND, MAX_FACES, deepest as _deepest, gather_triangles,
+    near_terrain, sphere_terrain_near, stable_candidates,
+)
 from mgf_tpu_torch.physics import (
     SHAPE_CAPSULE, SHAPE_SPHERE, RigidBodyState, colliders, complete_motion,
     integrate,
@@ -620,39 +624,15 @@ def _isum(x):
     return torch.sum(x, dtype=torch.int32)
 
 
-def _deepest(c: Contact):
-    """Max penetration depth over valid contacts ((ca-cb)·n > 0 when
-    overlapping; solver.rs:140 sign convention)."""
-    pen = dot(c.b - c.a, c.n)
-    return torch.max(torch.where(c.valid, torch.clamp(-pen, min=0.0), 0.0))
-
-
-def _near_terrain(world: World, state: RigidBodyState, cfg: WorldConfig):
-    """Dense AABB-distance terrain cull: the terrain_cand nearest faces
-    within reach per body.  ``lax.top_k`` keeps the LOWER index among equal
-    scores, and both triangles of a box face share one AABB, so ties are
-    certain: a stable descending sort reproduces that order exactly."""
-    n = state.n_bodies
-    ta = world.terrain
-    comps = lambda v: (v.x, v.y, v.z)
-    tlo = [torch.minimum(torch.minimum(a, b), c)
-           for a, b, c in zip(comps(ta.a), comps(ta.b), comps(ta.c))]
-    thi = [torch.maximum(torch.maximum(a, b), c)
-           for a, b, c in zip(comps(ta.a), comps(ta.b), comps(ta.c))]
-    px = comps(state.x)
-    d2 = torch.zeros((n, ta.a.x.shape[0]), dtype=torch.float32,
-                     device=state.x.x.device)
-    for k in range(3):
-        d_ax = torch.clamp(torch.maximum(tlo[k][None, :] - px[k][:, None],
-                                         px[k][:, None] - thi[k][None, :]),
-                           min=0.0)
-        d2 = d2 + d_ax * d_ax
-    reach = (state.shape_r + state.shape_half_h
-             + torch.sqrt(magnitude2(state.delta)) + 0.1)
-    score = torch.where(d2 <= (reach * reach)[:, None], -d2, -float("inf"))
-    top, pick = torch.sort(score, dim=1, descending=True, stable=True)
-    top, pick = top[:, :cfg.terrain_cand], pick[:, :cfg.terrain_cand]
-    return pick.to(torch.int32), torch.isfinite(top)
+def _one_pass_terrain(cfg: WorldConfig, n_tris: int,
+                      collect_contacts: bool) -> bool:
+    """Whether the terrain stage runs as one pass per body
+    (``ops.terrain.sphere_terrain_near``, kernel K5 on the card): spheres,
+    the "near" cull of a mesh small enough for the kernel's shared memory,
+    and no contact streams (they need the raw contacts)."""
+    return (cfg.shape_mode == "spheres" and cfg.terrain_bp == "near"
+            and not collect_contacts and 0 < n_tris <= MAX_FACES
+            and cfg.terrain_cand <= min(MAX_CAND, n_tris))
 
 
 def _grid_terrain(world: World, state: RigidBodyState, cfg: WorldConfig):
@@ -1113,34 +1093,32 @@ def step_tail(world: World, cfg: WorldConfig, head: StepHead, rebuild: bool,
                        + torch.sum(pair_manifold.local_a.x)}
     max_pen = f32(0.0) if light else _deepest(pc)
 
-    # ---- terrain narrowphase: dense, the "near" cull or the face grid ----
+    # ---- terrain narrowphase: one pass for spheres against a small mesh
+    # (kernel K5), else dense, the "near" cull or the face grid ----
     t_reach_excess = f32(0.0)
-    if n_tris > 0:
+    if _one_pass_terrain(cfg, n_tris, collect_contacts):
+        t_width = cfg.terrain_cand
+        t_manifold, t_tris, t_deep = sphere_terrain_near(
+            state.x, state.delta, state.shape_r, state.shape_half_h,
+            world.terrain, world.terrain_center, t_width, cfg.stable_pairs,
+            with_deepest=not light)
+        if not light:
+            max_pen = torch.maximum(max_pen, t_deep)
+    elif n_tris > 0:
         if cfg.terrain_bp in ("near", "grid"):
             if cfg.terrain_bp == "near":
-                t_cand, t_ok = _near_terrain(world, state, cfg)
+                t_cand, t_ok = near_terrain(
+                    world.terrain, state.x, state.delta, state.shape_r,
+                    state.shape_half_h, cfg.terrain_cand)
             else:
                 t_cand, t_ok, t_reach_excess = _grid_terrain(world, state,
                                                              cfg)
             if cfg.stable_pairs:
-                tb = 1 << 28
-                tcs = torch.sort(torch.where(t_ok, t_cand, tb), dim=1).values
-                tdup = torch.zeros_like(t_ok)
-                tdup[:, 1:] = tcs[:, 1:] == tcs[:, :-1]
-                t_ok = (tcs < tb) & ~tdup
-                t_cand = torch.where(t_ok, tcs, 0)
+                t_cand, t_ok = stable_candidates(t_cand, t_ok)
             t_width = cfg.terrain_cand
             t_tris = torch.where(t_ok, t_cand, 0).T        # (T_w, N)
             t_valid = t_ok.T
-            ta_ = world.terrain
-            tpack = torch.stack([ta_.a.x, ta_.a.y, ta_.a.z,
-                                 ta_.b.x, ta_.b.y, ta_.b.z,
-                                 ta_.c.x, ta_.c.y, ta_.c.z], dim=-1)
-            gtri = tpack[t_tris.long()]
-            tri = Triangle(
-                a=Vec3(gtri[..., 0], gtri[..., 1], gtri[..., 2]),
-                b=Vec3(gtri[..., 3], gtri[..., 4], gtri[..., 5]),
-                c=Vec3(gtri[..., 6], gtri[..., 7], gtri[..., 8]))
+            tri = gather_triangles(world.terrain, t_tris)
         else:
             # dense: every (triangle, body) pair, triangles down the rows
             t_width = n_tris
