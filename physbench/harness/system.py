@@ -106,9 +106,12 @@ def warm_variants(st, world, period: int, scales):
 
 
 def _counters():
-    from mgf_tpu_torch.ops import narrowphase, sequential_solve, solver_sweep
+    from mgf_tpu_torch.ops import (
+        narrowphase, sequential_solve, solver_sweep, terrain,
+    )
     return (("K1", solver_sweep, "LAUNCHES"), ("K2", narrowphase, "LAUNCHES"),
-            ("K4", sequential_solve, "LAUNCHES"))
+            ("K4", sequential_solve, "LAUNCHES"),
+            ("K5", terrain, "LAUNCHES"))
 
 
 def reset_launches():
@@ -120,3 +123,24 @@ def reset_launches():
 def launch_counts() -> dict:
     """The program's kernel launch counters (replay-true)."""
     return {k: getattr(mod, attr) for k, mod, attr in _counters()}
+
+
+def program_tracing(on: bool, device=None):
+    """Turn the program's own tracing (its device stamps, counters and
+    host spans) on for worlds on ``device``, or off.  Returns the tracing
+    module."""
+    from mgf_tpu_torch import tracing
+    if on:
+        tracing.enable(device)
+    else:
+        tracing.disable()
+    return tracing
+
+
+def program_record():
+    """What the program's tracing recorded since its last reset:
+    ``dict(record=tracing.record(), summary=tracing.summary(record))``
+    (the record synchronises the device)."""
+    from mgf_tpu_torch import tracing
+    rec = tracing.record()
+    return dict(record=rec, summary=tracing.summary(rec))

@@ -17,7 +17,9 @@ The cell (``BENCHMARK.json``'s ``workloads``) names a configuration
    one call, with per-frame position copies and metric reads where the
    traffic asks for them;
 4. with ``--trace 1``, traces ``trace_steps`` more steps with
-   ``torch.profiler`` and reads the per-layer metrics;
+   ``torch.profiler``, then runs ``4 x trace_steps`` more with the
+   program's own tracing on (``mgf_tpu_torch.tracing``: stage stamps and
+   counters), and reads the per-layer metrics;
 5. frees the program and holds what the window produced against the plain
    reference (``physbench/harness/compare.py``);
 6. prints each compared number beside its limit on stderr and, as the
@@ -273,6 +275,15 @@ def run_cell(cell: dict, conf: dict, traffic: dict, limits: dict, seed: int,
     else:
         peak, kind = 0, "cpu"
 
+    if trace:
+        # the program's own stage stamps and counters, over steps run after
+        # every other reading of the run (the profiled steps, the peak
+        # above): the settle, the window and the profiled steps replay the
+        # graphs they replay with the program's tracing off
+        with spans.span("stamped"):
+            ctx["program"] = _stamped(st, world, nonce[order], traffic,
+                                      cfg.bp_every, sync, watch, device)
+
     lower_prec = max(lower_prec, lower_precision_leaves(world))
     counted = watch.numbers()
     log(f"the program's counts over all its steps: {counted}")
@@ -350,11 +361,12 @@ def _widen(acc: dict, readings: dict):
 def _traced(st, world, nonce, traffic, conf, spans, sync, n_bodies, watch):
     """Trace ``trace_steps`` more steps of the window's traffic (``nonce``:
     its nonce rows in the order the window would have gone on with): the
-    device operations, the host spans, K1's launches and their work."""
+    device operations, the host spans, K1's and K5's launches and their
+    work."""
     import torch
 
     from physbench.harness import system
-    from physbench.harness.roofline import k1_bound_s
+    from physbench.harness.roofline import k1_bound_s, k5_bound_s
     from physbench.harness.trace import read_trace
     eng = conf["engine"]
     chunk = int(traffic["chunk"])
@@ -365,6 +377,7 @@ def _traced(st, world, nonce, traffic, conf, spans, sync, n_bodies, watch):
     bound = 0.0
     R = eng["max_pairs"] + eng["terrain_cand"]
 
+    n_faces = world.terrain.a.x.shape[0]
     system.reset_launches()
     sync()
     spans.profiling = True
@@ -388,14 +401,55 @@ def _traced(st, world, nonce, traffic, conf, spans, sync, n_bodies, watch):
         sync()
         window_s = time.perf_counter() - t0
     spans.profiling = False
-    launches = system.launch_counts()["K1"]
+    counts = system.launch_counts()
+    launches = counts["K1"]
     tr = read_trace(prof, window_s, n_chunks * chunk)
-    k1 = None
+    k1 = k5 = None
     if tr is not None and eng["pallas_solver"]:
         k1_s = sum(s for name, s in tr["by_name"].items()
                    if "solver_sweep" in name)
         k1 = dict(time_s=k1_s, launches=launches, bound_s=bound)
-    return dict(trace=tr, k1=k1)
+    if tr is not None:
+        # K5 writes the deepest penetration on a chunk's last step (full
+        # metrics) and not on the light steps before it
+        full = min(counts["K5"], n_chunks)
+        cand = eng["terrain_cand"]
+        k5 = dict(time_s=sum(s for name, s in tr["by_name"].items()
+                             if "sphere_terrain" in name),
+                  launches=counts["K5"],
+                  bound_s=full * k5_bound_s(n_bodies, n_faces, cand, True)
+                  + (counts["K5"] - full) * k5_bound_s(n_bodies, n_faces,
+                                                       cand, False))
+    return dict(trace=tr, k1=k1, k5=k5)
+
+
+def _stamped(st, world, nonce, traffic, bp_every, sync, watch, device):
+    """Run ``4 x trace_steps`` more steps of the window's traffic from
+    ``world`` (``nonce``: its nonce rows in the order the window would have
+    gone on with; a frame's positions copy and metrics read each frame)
+    with the program's own tracing on, its stamped graph variants captured
+    first, outside any timed or profiled span.  Returns
+    ``system.program_record()``.  The tracing is off again on return."""
+    import torch
+
+    from physbench.harness import system
+    tracing = system.program_tracing(True, device)
+    try:
+        system.warm_variants(st, world, bp_every, nonce[0])
+        sync()
+        tracing.reset()
+        chunk = int(traffic["chunk"])
+        for i in range(max(1, 4 * int(traffic["trace_steps"]) // chunk)):
+            world, m = st.step_chunk(world, nonce[i % nonce.shape[0]])
+            watch(m)
+            if traffic["frame_reads"]:
+                b = world.bodies
+                torch.stack([b.x.x, b.x.y, b.x.z], 1).cpu()
+                torch.cat([v.reshape(-1).float() for v in m.values()]).cpu()
+        sync()
+        return system.program_record()
+    finally:
+        system.program_tracing(False)
 
 
 def main(argv=None):
