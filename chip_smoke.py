@@ -64,7 +64,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
     K1 on the same data;
 11. the mixed pile at full width: stress_scene(100_000, mixed=True)
     (75,000 spheres, then 25,000 capsules; the type-partitioned
-    narrowphase, two chained block solves, the hybrid warm match at 24
+    narrowphase, two chained block solves, the hybrid warm match at 36
     rows) stepped 128 steps by AdaptiveChunkStepper(chunk=16, light=True):
     finite state, drift excess 0 in every step, contacts, no body below
     y = -1 or outside the walls, and no launch of K1, K2 or K3 (this path

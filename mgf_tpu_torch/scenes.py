@@ -225,8 +225,14 @@ def stress_scene(n_bodies: int = 100_000, mixed: bool = False, seed: int = 0,
     world = make_world(b.build(device), verts, faces, device=device)
     if mixed:
         # cell 2.0 >= the capsule-capsule pair reach (~1.54) with room for
-        # the rebuild cadence's slack; the pile is flat, so y gets 16 cells
-        grid = GridConfig(cell_size=2.0, dim=(128, 16, 128), bucket_cap=14)
+        # the rebuild cadence's slack; the pile is flat, so y gets 16 cells.
+        # The cap is the densest cell of the settled pile: resting contacts
+        # sit at the solver's 0.05 slop, so touching centres are 0.95
+        # apart, and close-packed layers of r = 0.5 bodies at that spacing
+        # put at most 23 centres in a 2.0 cell (capsules, larger, fewer;
+        # the settled 100k pile's densest cell holds 16-18).  24 keeps
+        # each component's slots of a bucket 32-byte aligned.
+        grid = GridConfig(cell_size=2.0, dim=(128, 16, 128), bucket_cap=24)
         n_sph = int(np.sum(~caps))
     else:
         # grid modulus (dim * cell) must exceed the box span (2 * wall) or
@@ -236,14 +242,23 @@ def stress_scene(n_bodies: int = 100_000, mixed: bool = False, seed: int = 0,
             dim *= 2
         grid = GridConfig(cell_size=1.6, dim=(dim, 16, dim), bucket_cap=12)
     # K = 9 pair rows + 3 terrain candidates, no row compaction: 12 solver
-    # rows for spheres, 2 * (9 + 3) = 24 for the mixed pile's two slots
+    # rows for spheres.  The mixed pile's two slots take 2 * (12 + 6) =
+    # 36: a settled capsule overlaps up to 15 bodies, and 9 rows left
+    # ~47,000 touching pairs of the 100k pile out of full rows, 12 leave
+    # ~7,000; both triangles of a box face share one bounding box, so a
+    # body at a wall's foot has four faces at one cull distance and in a
+    # corner six, and 3 candidates can drop the floor triangle under it.
+    # With both, 4 x 4 sweeps throughout (no switch to 2 x 6) and the warm
+    # start damped to 0.6, the settled pile's deepest contact reads ~0.3
+    # against 0.41-0.57 before, and no body leaves the box (PERF.md, the
+    # mixed pile's witness).
     cfg = WorldConfig(
         dt=1.0 / 60.0, solver_iters=4, solver_inner=4, two_phase=False,
-        adapt_schedule=(0.97, 2, 6),
+        adapt_schedule=(0.97, 4, 4) if mixed else (0.97, 2, 6),
         shape_mode="mixed" if mixed else "spheres",
         solver="rows", broadphase="fat27x4", solver_rows=0, warm_start=True,
-        terrain_bp="near", terrain_cand=3,
-        grid=grid, max_pairs=9, fatten=0.02,
+        terrain_bp="near", terrain_cand=6 if mixed else 3,
+        grid=grid, max_pairs=12 if mixed else 9, fatten=0.02,
         stable_pairs=True,
         n_sphere_rows=n_sph if mixed else -1,
         bp_every=8 if mixed else 32,
@@ -255,8 +270,10 @@ def stress_scene(n_bodies: int = 100_000, mixed: bool = False, seed: int = 0,
         # "ends" emits the overlap interval's two endpoints
         cap_manifold="ends" if mixed else "mid",
         # full-gain warm pre-apply on sliding capsule contacts keeps a
-        # mixed pile agitated; 0.8 damps the loop
-        warm_gamma=0.8 if mixed else 1.0,
+        # mixed pile agitated (1.0 launched bodies out of the box); 0.8
+        # still launched one over a wall in the collapse of one pile in
+        # eleven, 0.6 none (PERF.md, the mixed pile's witness)
+        warm_gamma=0.6 if mixed else 1.0,
         fused_iso=not mixed)
     world = init_warm(world, cfg)
     world = init_bp_cache(world, cfg)

@@ -17,6 +17,11 @@ card's.  The step's intervals, each named after the stamp that closes it
     tail  need_gap | pairs | narrow | terrain | rows | constraints | warm
           | solve | finish
 
+The mixed pile's split solve (``world.step_tail``'s two column blocks)
+closes ``solve_spheres`` after its sphere block and ``solve_capsules``
+after its capsule block in place of ``solve`` (:data:`SPLIT`); every other
+step closes the intervals above and no other.
+
 ``step_gap`` and ``need_gap`` close at the head's and the tail's first
 node, so they hold the device's idle time before each (the host's loop,
 its read of ``need``) and nothing else.  ``finish`` closes at the step's
@@ -35,7 +40,10 @@ captured while it is off.
 **Counters**, on the device, in the step's tail (light steps too):
 ``pairs_tested`` (the sum of the candidate rows' ``pair_ok``, which the
 metric ``num_pairs`` counts on full steps) and ``contacts`` (the valid
-constraint rows, ``num_contacts``).  On the host,
+constraint rows, ``num_contacts``); on the split solve also
+``capsule_rows`` (the valid rows in the capsule columns, those at and past
+``n_sphere_rows``), kept apart from the two (:func:`count_capsule_rows`,
+``record()["capsule_rows"]``).  On the host,
 ``AdaptiveChunkStepper.step_chunk`` counts the steps run on each solver
 schedule and on the hot one.
 
@@ -62,13 +70,15 @@ from torch.autograd import profiler as _profiler
 from mgf_tpu_torch.ops import stamp as _stamp
 
 __all__ = ["ON", "enable", "disable", "reset", "record", "summary", "stamp",
-           "count", "count_schedule", "span", "HEAD", "TAIL", "CHUNK"]
+           "count", "count_capsule_rows", "count_schedule", "span", "HEAD",
+           "TAIL", "SPLIT", "CHUNK"]
 
 ON = False
 
 HEAD = ("step_gap", "integrate", "bounds")
 TAIL = ("need_gap", "pairs", "narrow", "terrain", "rows", "constraints",
         "warm", "solve", "finish")
+SPLIT = ("solve_spheres", "solve_capsules")
 CHUNK = ("call_gap", "chunk_in", "chunk_out")
 VARIANTS = ("rebuild", "reuse")
 COUNTERS = ("pairs_tested", "contacts")
@@ -78,11 +88,11 @@ _SLOT = {}
 for _n in CHUNK + HEAD:
     _SLOT[_n, None] = len(_SLOT)
 for _v in VARIANTS:
-    for _n in TAIL:
+    for _n in TAIL + SPLIT:
         _SLOT[_n, _v] = len(_SLOT)
 
 _buf = None       # the stamp buffer (int64, ``ops/stamp.py``'s layout)
-_counters = None  # COUNTERS, int64, on the same device
+_counters = None  # COUNTERS, then capsule_rows, int64, on the same device
 _retired = []     # buffers of an earlier device: captured graphs may still
                   # write into them, so they are never freed
 _spans = []       # [name, start ns, end ns or None, parent index or None]
@@ -108,7 +118,7 @@ def enable(device=None) -> None:
             _retired.append((_buf, _counters))
         _buf = torch.zeros((_stamp.buffer_size(len(_SLOT)),),
                            dtype=torch.int64, device=device)
-        _counters = torch.zeros((len(COUNTERS),), dtype=torch.int64,
+        _counters = torch.zeros((len(COUNTERS) + 1,), dtype=torch.int64,
                                 device=device)
     ON = True
 
@@ -149,6 +159,14 @@ def count(device, pair_ok, rc_valid) -> None:
     if _buf is not None and device == _buf.device:
         _counters[0:1].add_(torch.sum(pair_ok))
         _counters[1:2].add_(torch.sum(rc_valid))
+
+
+def count_capsule_rows(device, rc_valid) -> None:
+    """Add a split step's valid constraint rows in its capsule columns
+    (``rc_valid`` sliced to them) to the ``capsule_rows`` counter, on the
+    device."""
+    if _buf is not None and device == _buf.device:
+        _counters[-1:].add_(torch.sum(rc_valid))
 
 
 def count_schedule(iters: int, inner: int, steps: int, hot: bool) -> None:
@@ -200,11 +218,15 @@ def record() -> dict:
     ``intervals``: name -> {"ns", "count"} over every variant; ``tails``:
     "rebuild" / "reuse" -> the tail's intervals of that variant;
     ``span_ns``: the first stamp to the last; ``steps``: the stamped steps
-    (``finish``'s count); ``spans``: [name, start ns, end ns (None while
-    open), index of the parent span or None], parents first."""
-    intervals = {n: {"ns": 0, "count": 0} for n in CHUNK + HEAD + TAIL}
-    tails = {v: {n: {"ns": 0, "count": 0} for n in TAIL} for v in VARIANTS}
+    (``finish``'s count); ``capsule_rows``: the split solve's counter;
+    ``spans``: [name, start ns, end ns (None while open), index of the
+    parent span or None], parents first."""
+    intervals = {n: {"ns": 0, "count": 0}
+                 for n in CHUNK + HEAD + TAIL + SPLIT}
+    tails = {v: {n: {"ns": 0, "count": 0} for n in TAIL + SPLIT}
+             for v in VARIANTS}
     counters = dict.fromkeys(COUNTERS, 0)
+    capsule_rows = 0
     span_ns = 0
     if _buf is not None:
         s = _buf.tolist()
@@ -215,7 +237,8 @@ def record() -> dict:
             if variant is not None:
                 tails[variant][name] = {"ns": ns, "count": k}
         span_ns = s[0] - s[1] if s[0] else 0
-        counters = dict(zip(COUNTERS, _counters.tolist()))
+        *counted, capsule_rows = _counters.tolist()
+        counters = dict(zip(COUNTERS, counted))
     dev = None if _buf is None else _buf.device
     return dict(
         clock=None if dev is None else (
@@ -223,22 +246,27 @@ def record() -> dict:
         device=None if dev is None else str(dev),
         span_ns=span_ns, steps=intervals["finish"]["count"],
         intervals=intervals, tails=tails, counters=counters,
-        schedules=dict(_schedules), hot_steps=_hot_steps,
+        capsule_rows=capsule_rows, schedules=dict(_schedules),
+        hot_steps=_hot_steps,
         spans=[list(sp) for sp in _spans])
 
 
 def _ns(table: dict, names) -> int:
-    return sum(table[n]["ns"] for n in names)
+    # a record written without the split stamps has no SPLIT intervals
+    return sum(table[n]["ns"] for n in names if n in table)
 
 
 def summary(rec: dict) -> dict:
     """The stage table a step of a :func:`record` (ms a step unless named;
     None where the record has nothing to divide): the device time of each
     layer, the rebuild step, the host's and the device's wait on
-    ``need``, the idle share, the schedule and the counters."""
+    ``need``, the idle share, the schedule and the counters.  The split
+    solve's blocks and ``capsule_rows_per_step`` are None where no stamped
+    step ran the split solve."""
     iv, steps = rec["intervals"], rec["steps"]
     ms = (lambda names: 1e-6 * _ns(iv, names) / steps) if steps else (
         lambda names: None)
+    split = steps and iv.get(SPLIT[1], {}).get("count", 0) > 0
     rebuilds = rec["tails"]["rebuild"]["finish"]["count"]
     need_read = sum(e - s for name, s, e, _ in rec["spans"]
                     if name == "graphs.need_read" and e is not None)
@@ -246,14 +274,17 @@ def summary(rec: dict) -> dict:
     pairs = rec["counters"]["pairs_tested"]
     return dict(
         steps=steps,
-        stages={n: ms([n]) for n in CHUNK + HEAD + TAIL},
+        stages={n: ms([n]) for n in CHUNK + HEAD + TAIL + SPLIT},
         broadphase=ms(["bounds", "pairs"]),
         narrowphase=ms(["narrow", "terrain"]),
         constraints=ms(["rows", "constraints", "warm"]),
-        solver=ms(["solve"]),
+        solver=ms(["solve", *SPLIT]),
+        sphere_block_solve=ms([SPLIT[0]]) if split else None,
+        capsule_block_solve=ms([SPLIT[1]]) if split else None,
         commit=ms(["finish"]),
         rebuild_step=(1e-6 * (_ns(iv, ["integrate", "bounds"]) / steps
-                              + _ns(rec["tails"]["rebuild"], TAIL[1:])
+                              + _ns(rec["tails"]["rebuild"],
+                                    TAIL[1:] + SPLIT)
                               / rebuilds) if steps and rebuilds else None),
         need_wait=1e-6 * need_read / steps if steps else None,
         need_gap=ms(["need_gap"]),
@@ -265,4 +296,6 @@ def summary(rec: dict) -> dict:
                           if sched_steps else None),
         pairs_tested_per_step=pairs / steps if steps else None,
         contacts_per_pair_pct=(100.0 * rec["counters"]["contacts"] / pairs
-                               if pairs else None))
+                               if pairs else None),
+        capsule_rows_per_step=(rec["capsule_rows"] / steps if split
+                               else None))

@@ -1333,6 +1333,8 @@ def step_tail(world: World, cfg: WorldConfig, head: StepHead, rebuild: bool,
                 rc_a, sv_in[0], sv_in[1], sv_in[2], iso_arr, it,
                 cfg.friction_mode, cfg.two_phase, inner, warm=warm_a,
                 return_acc=True, return_state=True)
+            if tracing.ON:
+                tracing.stamp("solve_spheres", dev, rebuild)
             S2, acc_b = solve_rows(
                 rc_b, sv_in[0], sv_in[1], sv_in[2], solver_inertia, it,
                 cfg.friction_mode, cfg.two_phase, inner, warm=warm_b,
@@ -1382,7 +1384,11 @@ def step_tail(world: World, cfg: WorldConfig, head: StepHead, rebuild: bool,
     else:
         v, omega, _ = run_solve(*schedule)
     if tracing.ON:
-        tracing.stamp("solve", dev, rebuild)
+        # the split solve's capsule block closes its second interval
+        tracing.stamp("solve_capsules" if split_solve else "solve", dev,
+                      rebuild)
+        if split_solve:
+            tail["capsule_cols"] = ns_b
     if cfg.profile_stage == "solve":
         return world, {"probe": torch.sum(v.x) + torch.sum(omega.x)}
     return _finish(world, cfg, state, v, omega, rc_valid, tail, new_warm,
@@ -1412,6 +1418,8 @@ def _finish(world: World, cfg: WorldConfig, state: RigidBodyState, v, omega,
                     else torch.sum(rc_valid).to(torch.int32))
     if tracing.ON:
         tracing.count(dev, mv["pair_ok_t"], rc_valid)
+        if "capsule_cols" in mv:
+            tracing.count_capsule_rows(dev, rc_valid[:, mv["capsule_cols"]:])
     metrics = {
         "num_alive": zero_i if light else
         torch.sum(mv["alive"]).to(torch.int32),

@@ -56,7 +56,8 @@ from mgf_tpu_torch.physics import (  # noqa: E402
 )
 from mgf_tpu_torch.scenes import stress_scene as t_stress_scene  # noqa: E402
 from mgf_tpu_torch.world import (  # noqa: E402
-    WorldConfig, init_warm, make_world, solver_row_count, step,
+    WorldConfig, init_bp_cache, init_warm, make_world, solver_row_count,
+    step,
 )
 
 CPU = "cpu"
@@ -88,23 +89,40 @@ def jax_mixed():
     return out, cfg
 
 
+# the port's mixed pile differs from mgf_tpu's in these settings alone
+# (its cell table, pair rows, terrain candidates, sweep schedule and warm
+# start, set for the settled 100k pile: mgf_tpu_torch/scenes.py, PERF.md)
+PORT_MIXED = dict(grid=GridConfig(cell_size=2.0, dim=(128, 16, 128),
+                                  bucket_cap=24),
+                  max_pairs=12, terrain_cand=6, adapt_schedule=(0.97, 4, 4),
+                  warm_gamma=0.6)
+
+
 @pytest.mark.parametrize("n,cap_frac", [(N_BODIES, 0.25), (300, 0.5),
                                         (64, 1.0)])
 def test_mixed_scene_matches_jax(n, cap_frac):
     jw, jcfg = j_stress_scene(n, mixed=True, cap_frac=cap_frac)
     tw, tcfg = t_stress_scene(n, mixed=True, cap_frac=cap_frac, device=CPU)
+    # the same scene, and with mgf_tpu's settings the same warm-start and
+    # broadphase-cache state: both built from one config on each side
+    jcfg_t = WorldConfig(*jcfg)
+    tw = init_bp_cache(init_warm(tw, jcfg_t), jcfg_t)
     a = jax.tree_util.tree_leaves(_np_tree(jw))
     b = jax.tree_util.tree_leaves(world_to_numpy(tw))
     assert len(a) == len(b)
     for x, y in zip(a, b):
         assert x.dtype == y.dtype and x.shape == y.shape
         np.testing.assert_array_equal(x, y)
-    assert tuple(jcfg) == tuple(tcfg)
+    assert {k for k in WorldConfig._fields
+            if getattr(jcfg, k) != getattr(tcfg, k)} == set(PORT_MIXED)
+    assert tuple(jcfg_t._replace(**PORT_MIXED)) == tuple(tcfg)
     n_caps = int(tw.bodies.shape_type.sum())
     assert tcfg.n_sphere_rows == n - n_caps
     # type-sorted: the spheres first
     assert not tw.bodies.shape_type[:tcfg.n_sphere_rows].any()
-    assert tw.warm.partner.shape == (solver_row_count(tcfg, 10), n) == (24, n)
+    assert tw.warm.partner.shape == (solver_row_count(jcfg_t, 10), n) == \
+        (24, n)
+    assert solver_row_count(tcfg, 10) == 36
 
 
 @pytest.mark.parametrize("cap_frac", [0.0, -0.5, float("nan")])
